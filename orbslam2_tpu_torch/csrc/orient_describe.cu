@@ -1,4 +1,5 @@
-// Fused per-keypoint orientation + rotated-BRIEF for Hopper (sm_90a).
+// Fused per-keypoint orientation + rotated-BRIEF for Hopper (sm_90a): one
+// launch for all pyramid levels of a frame.
 //
 // Replaces the TPU kernel orbslam2_tpu/ops/pallas_orb.py::fused_orient_describe
 // (body _kernel, helper _phase_copies). It computes the same function and is
@@ -16,32 +17,93 @@
 //      integer grey, round(clip(I, 0, 255)); bit = val_a < val_b;
 //   4. bit b of word w is pair 32*w + b (the pack_bits layout).
 //
-// What bounds it on this card: bytes. Each level image is read once (a few
-// MB at most, resident in L2 after the first touch) and a keypoint writes 36
-// bytes; the arithmetic is about 10^4 operations a keypoint. At a few hundred
-// keypoints a level the launch itself, not the memory rate, sets the time.
+// What bounds it on this card: bytes on paper (each level image read once
+// from device memory, 52 bytes a keypoint; the arithmetic is about 10^4
+// operations a keypoint). At a frame's 2000 keypoints and 6.4 MB of images
+// that sit in L2 that bound is out of reach: 2000 warps are under a quarter
+// of the 8448 the card holds, every warp is resident from the first
+// microsecond, and each pulls its own two 31x31 windows (62 rows of 124
+// bytes) from L2. The launch then lasts as long as its slowest warp: a chain
+// of memory latencies (level table, coordinates, raw patch, blurred samples)
+// stretched by all warps drawing on L2 at once. PERF.md has the times.
 //
-// Design: one warp per keypoint, four warps per block. Lane c reads column c
-// of the 31x31 raw patch row by row (one coalesced 124-byte read per row), a
-// butterfly of warp shuffles sums the moments so every lane holds them, then
-// in round w each lane evaluates pair 32*w + lane and __ballot_sync yields
-// word w directly. No shared memory, no atomics, no synchronisation beyond
-// the warp. Rotation products use the non-fusing intrinsics so that the
-// rounded offsets agree with the plain PyTorch version of the same function.
+// Design.
+// - One launch a frame. The launcher takes a table of up to 16 levels by
+//   value (a __grid_constant__ parameter, 912 bytes of the 4 KB parameter
+//   space: no copy to the device, no synchronisation). An entry holds the
+//   level's image pointers and size, its keypoint coordinates, the count k
+//   the extractor selected, its slot budget and the offset of its first
+//   slot in the frame-wide outputs. One warp per output slot: it finds its
+//   level by walking the offsets (uniform across the warp). A slot past k
+//   inside the budget is written as zero, so the outputs need no memset.
+// - The moment pass costs one memory latency, not 31. Lane c reads column c
+//   of the raw patch (one coalesced 124-byte read per row) and starts all 31
+//   loads before it sums the first. Summing each value where it is loaded,
+//   inside the disc test, made every load wait for the one before. The sums
+//   keep their row order, so no bit changes.
+// - The BRIEF gathers go to L1/L2 directly. Copying the keypoint's blurred
+//   31x31 window into shared memory with cp.async (4-byte copies, since rows
+//   start at arbitrary columns) under the moment pass, with the pattern in
+//   the same copy group, was built and timed on the card: it is no faster,
+//   because sending 31 more copies a lane costs what the shorter gathers
+//   save (PERF.md has both times). The pattern (256 float4, indexed by lane)
+//   is read through the read-only path and hits L1 after an SM's first warp.
+// - 8 warps a block: 4 and 8 tie on the card and 16 is slower; ptxas reports
+//   40 registers and no shared memory, so occupancy does not depend on it.
+// - Not TMA: a tensor map needs row pitches that are multiples of 16 bytes,
+//   and the level widths (640, 533, 444, 370, ...) are mostly not. A
+//   pitched pyramid would change what the extractor hands every other
+//   consumer.
+// - A butterfly of warp shuffles sums the moments so that every lane holds
+//   them, then in round w each lane evaluates pair 32*w + lane and
+//   __ballot_sync yields word w. Rotation products use the non-fusing
+//   intrinsics so that the rounded offsets agree with the plain PyTorch
+//   version of the same function.
 //
 // Plain C interface; built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// and loaded with ctypes by orbslam2_tpu_torch/ops/cuda_orb.py.
+// and loaded with ctypes by orbslam2_tpu_torch/ops/cuda_orb.py, whose
+// LevelEntry / LevelTable mirror the two structs below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+extern "C" {
+
+struct OrientDescribeLevel {
+    const float* raw;    // [h, w] level image
+    const float* blur;   // [h, w] blurred level image
+    const void* ys;      // [k] int32 or int64 (the table's coord_bytes)
+    const void* xs;      // [k]
+    int32_t h, w;
+    int32_t k;           // keypoints selected on this level
+    int32_t budget;      // output slots of this level (>= k)
+    int32_t offset;      // first slot in the frame-wide outputs
+    int32_t reserved;
+};
+
+struct OrientDescribeTable {
+    OrientDescribeLevel level[16];
+    int32_t n_levels;
+    int32_t n_total;      // sum of the budgets
+    int32_t coord_bytes;  // 4: ys/xs are int32, 8: int64
+    int32_t reserved;
+};
+
+}  // extern "C"
+
+// ops/cuda_orb.py pins the same sizes (LEVEL_ENTRY_BYTES, LEVEL_TABLE_BYTES).
+static_assert(sizeof(OrientDescribeLevel) == 56, "level entry layout");
+static_assert(sizeof(OrientDescribeTable) == 912, "level table layout");
+
 namespace {
 
+constexpr int kMaxLevels = 16;
 constexpr int kHalfPatch = 15;
 constexpr int kPatch = 31;
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -52,36 +114,65 @@ __device__ __forceinline__ float grey(float v) {
     return rintf(fminf(fmaxf(v, 0.0f), 255.0f));
 }
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-orient_describe_kernel(const float* __restrict__ raw,
-                       const float* __restrict__ blur,
-                       const int* __restrict__ ys,
-                       const int* __restrict__ xs,
+__device__ __forceinline__ int load_coord(const void* p, int i, int coord_bytes,
+                                          int lo, int hi) {
+    const long long v = coord_bytes == 8 ? ((const long long*)p)[i]
+                                         : (long long)((const int*)p)[i];
+    return (int)min(max(v, (long long)lo), (long long)hi);
+}
+
+__global__ void __launch_bounds__(kThreads)
+orient_describe_kernel(const __grid_constant__ OrientDescribeTable table,
                        const float4* __restrict__ pattern,  // [256] (ax, ay, bx, by)
-                       float* __restrict__ angle,           // [K]
-                       int* __restrict__ desc,              // [K, 8]
-                       int h, int w, int k) {
-    const int kp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+                       float* __restrict__ angle,           // [n_total]
+                       int* __restrict__ desc) {            // [n_total, 8]
+    const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    if (kp >= k) return;  // uniform across the warp
+    const int slot = blockIdx.x * kWarpsPerBlock + warp;
 
-    // Valid keypoints keep a 19-pixel margin; padded or invalid slots are
-    // moved inside so that no read leaves the image.
-    const int y = clampi(ys[kp], kHalfPatch, h - 1 - kHalfPatch);
-    const int x = clampi(xs[kp], kHalfPatch, w - 1 - kHalfPatch);
+    if (slot >= table.n_total) return;
 
-    // ---- moments over the disc of the raw patch ----
+    // ---- which level, which keypoint (uniform across the warp) ----
+    int lv = 0;
+    while (lv + 1 < table.n_levels && slot >= table.level[lv + 1].offset) ++lv;
+    const OrientDescribeLevel& level = table.level[lv];
+    const int kp = slot - level.offset;
+    if (kp >= level.k) {  // padded slot of the level's budget
+        if (lane < 8) desc[(size_t)slot * 8 + lane] = 0;
+        if (lane == 0) angle[slot] = 0.0f;
+        return;
+    }
+
+    const int h = level.h;
+    const int w = level.w;
+    // Valid keypoints keep a 19-pixel margin; invalid slots are moved inside
+    // so that no read leaves the image.
+    const int y = load_coord(level.ys, kp, table.coord_bytes, kHalfPatch, h - 1 - kHalfPatch);
+    const int x = load_coord(level.xs, kp, table.coord_bytes, kHalfPatch, w - 1 - kHalfPatch);
+
+    // ---- the raw patch: 31 independent loads a lane, all in flight at once ----
+    // The patch's corner as one 64-bit offset: added to the pointer term by
+    // term instead, the launch measured a tenth slower on the card.
+    const size_t corner = (size_t)(y - kHalfPatch) * w + (x - kHalfPatch);
+    const bool loads = lane < kPatch;  // lane c owns column c of the patch
+    const int dx = lane - kHalfPatch;
+    float v[kPatch];
+    if (loads) {
+        const float* p = level.raw + corner + lane;
+#pragma unroll
+        for (int r = 0; r < kPatch; ++r) v[r] = __ldg(p + (size_t)r * w);
+    }
+
+    // ---- moments over the disc of the raw patch, rows in order ----
     float col_sum = 0.0f;  // sum of the lane's column (for m10)
     float m01 = 0.0f;
-    const int dx = lane - kHalfPatch;
-    if (lane < kPatch) {
-        const float* p = raw + (size_t)(y - kHalfPatch) * w + (x - kHalfPatch) + lane;
+    if (loads) {
+#pragma unroll
         for (int r = 0; r < kPatch; ++r) {
             const int dy = r - kHalfPatch;
             if (dx * dx + dy * dy <= kHalfPatch * kHalfPatch) {
-                const float v = p[(size_t)r * w];
-                col_sum += v;
-                m01 += (float)dy * v;
+                col_sum += v[r];
+                m01 += (float)dy * v[r];
             }
         }
     }
@@ -97,9 +188,10 @@ orient_describe_kernel(const float* __restrict__ raw,
     const float ca = degenerate ? 1.0f : __fmul_rn(m10, inv_r);
     const float sa = degenerate ? 0.0f : __fmul_rn(m01, inv_r);
 
-    // ---- rotated BRIEF on the blurred image ----
-    const float* b = blur + (size_t)y * w + x;
+    // ---- rotated BRIEF on the blurred window ----
+    const float* b = level.blur + (size_t)y * w + x;
     unsigned my_word = 0;
+#pragma unroll
     for (int word = 0; word < 8; ++word) {
         const float4 pt = pattern[word * 32 + lane];
         // x' = dx ca - dy sa ; y' = dx sa + dy ca ; rintf rounds half to even
@@ -116,23 +208,49 @@ orient_describe_kernel(const float* __restrict__ raw,
         const unsigned bits = __ballot_sync(kFullMask, va < vb);
         if (lane == word) my_word = bits;
     }
-    if (lane < 8) desc[(size_t)kp * 8 + lane] = (int)my_word;
-    if (lane == 0) angle[kp] = atan2f(m01, m10);
+    if (lane < 8) desc[(size_t)slot * 8 + lane] = (int)my_word;
+    if (lane == 0) angle[slot] = atan2f(m01, m10);
+}
+
+// Measurement aid, not a kernel of the port: the same grid, block and
+// parameter with no work, for the time no launch of this grid can beat.
+__global__ void __launch_bounds__(kThreads)
+orient_describe_empty_kernel(const __grid_constant__ OrientDescribeTable table,
+                             float* __restrict__ angle) {
+    if (table.n_total < 0) angle[0] = 0.0f;  // never true: keeps the parameter live
+}
+
+int check_table(const OrientDescribeTable* table) {
+    if (table->n_levels < 1 || table->n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
+    if (table->coord_bytes != 4 && table->coord_bytes != 8) return (int)cudaErrorInvalidValue;
+    return 0;
+}
+
+int blocks_for(int n_total) {
+    return (n_total + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() as an int (0 = launched).
-extern "C" int orient_describe_launch(const void* raw, const void* blur,
-                                      const void* ys, const void* xs,
+extern "C" int orient_describe_launch(const OrientDescribeTable* table,
                                       const void* pattern, void* angle,
-                                      void* desc, int h, int w, int k,
-                                      void* stream) {
-    if (k <= 0) return 0;
-    const int threads = 32 * kWarpsPerBlock;
-    const int blocks = (k + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    orient_describe_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)raw, (const float*)blur, (const int*)ys, (const int*)xs,
-        (const float4*)pattern, (float*)angle, (int*)desc, h, w, k);
+                                      void* desc, void* stream) {
+    if (const int err = check_table(table)) return err;
+    if (table->n_total <= 0) return 0;
+    orient_describe_kernel<<<blocks_for(table->n_total), kThreads, 0,
+                             (cudaStream_t)stream>>>(
+        *table, (const float4*)pattern, (float*)angle, (int*)desc);
     return (int)cudaGetLastError();
 }
+
+extern "C" int orient_describe_launch_empty(const OrientDescribeTable* table,
+                                            void* angle, void* stream) {
+    if (const int err = check_table(table)) return err;
+    if (table->n_total <= 0) return 0;
+    orient_describe_empty_kernel<<<blocks_for(table->n_total), kThreads, 0,
+                                   (cudaStream_t)stream>>>(*table, (float*)angle);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int orient_describe_table_bytes() { return (int)sizeof(OrientDescribeTable); }

@@ -1,30 +1,40 @@
-"""Fused per-keypoint orientation + rotated-BRIEF: the Hopper kernel's wrapper
-and its plain PyTorch version.
+"""Fused per-keypoint orientation + rotated-BRIEF: the Hopper kernel's wrappers
+and their plain PyTorch versions.
 
-Counterpart of ``orbslam2_tpu/ops/pallas_orb.py``: ``fused_orient_describe``
-here replaces the TPU kernel ``pallas_orb.fused_orient_describe``. The kernel
-is CUDA C++ (``csrc/orient_describe.cu``, one warp per keypoint, warp-shuffle
-moments, ``__ballot_sync`` bit packing). It is bound by bytes — each level
-image read once, 36 bytes written per keypoint — and at the main path's sizes
-by the launch itself; see the source note in the ``.cu`` file.
+Counterpart of ``orbslam2_tpu/ops/pallas_orb.py``: the kernel behind
+``fused_orient_describe_levels`` (one launch for all pyramid levels of a frame)
+and ``fused_orient_describe`` (one level, a table of one entry through the same
+kernel) replaces the TPU kernel ``pallas_orb.fused_orient_describe``. It is
+CUDA C++ (``csrc/orient_describe.cu``: one warp per output slot, a level table
+passed by value, all raw-patch loads of a lane in flight at once, warp-shuffle
+moments, ``__ballot_sync`` bit packing). It is bound by bytes on paper; at a
+frame's 2000 keypoints one launch lasts as long as its slowest warp's chain of
+memory latencies. See the source note in the ``.cu`` file.
 
 The library is built with ``nvcc`` for ``sm_90a`` at first use, from the
 sources in ``csrc/`` and nothing else, into ``orbslam2_tpu_torch/_build/``,
-and loaded with ``ctypes``. For a CUDA tensor the wrapper launches the kernel
-or raises; the plain version is taken only for CPU tensors.
+and loaded with ``ctypes``. For a CUDA tensor a wrapper launches the kernel
+or raises; the plain versions are taken only for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import shutil
+import struct
 import subprocess
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 HALF_PATCH = 15
 PATCH = 31
+MAX_LEVELS = 16
+# sizes of the two structs below; csrc/orient_describe.cu pins the same
+# numbers with static_assert
+LEVEL_ENTRY_BYTES = 56
+LEVEL_TABLE_BYTES = 912
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -33,6 +43,28 @@ _SOURCES = ("orient_describe.cu",)
 _LIB_NAME = "liborbslam2_kernels.so"
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+class LevelEntry(ctypes.Structure):
+    """``OrientDescribeLevel`` of csrc/orient_describe.cu."""
+    _fields_ = [("raw", ctypes.c_void_p), ("blur", ctypes.c_void_p),
+                ("ys", ctypes.c_void_p), ("xs", ctypes.c_void_p),
+                ("h", ctypes.c_int32), ("w", ctypes.c_int32),
+                ("k", ctypes.c_int32), ("budget", ctypes.c_int32),
+                ("offset", ctypes.c_int32), ("reserved", ctypes.c_int32)]
+
+
+class LevelTable(ctypes.Structure):
+    """``OrientDescribeTable`` of csrc/orient_describe.cu: what one launch
+    needs to know of every level. It lives on the host; the launcher hands it
+    to the kernel by value."""
+    _fields_ = [("level", LevelEntry * MAX_LEVELS),
+                ("n_levels", ctypes.c_int32), ("n_total", ctypes.c_int32),
+                ("coord_bytes", ctypes.c_int32), ("reserved", ctypes.c_int32)]
+
+
+# one LevelEntry in native layout, for filling a table in one call per level
+_LEVEL_ENTRY = struct.Struct("4P6i")
 
 
 def _find_nvcc() -> str:
@@ -47,9 +79,10 @@ def _find_nvcc() -> str:
                        "are built from source at first use")
 
 
-def build_kernels(force: bool = False) -> str:
+def build_kernels(force: bool = False, ptxas_verbose: bool = False) -> str:
     """Compile ``csrc/*.cu`` into one shared library; -> its path. Rebuilds
-    when a source is newer than the library."""
+    when a source is newer than the library. ``ptxas_verbose`` prints the
+    registers and shared memory ``ptxas`` reports for each kernel."""
     lib_path = os.path.join(_BUILD_DIR, _LIB_NAME)
     srcs = [os.path.join(_CSRC_DIR, s) for s in _SOURCES]
     if not force and os.path.exists(lib_path) and all(
@@ -59,11 +92,14 @@ def build_kernels(force: bool = False) -> str:
     tmp_path = f"{lib_path}.{os.getpid()}.tmp"
     cmd = [_find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           *(("-Xptxas", "-v") if ptxas_verbose else ()),
            "-o", tmp_path, *srcs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n"
                            f"{proc.stderr}")
+    if ptxas_verbose:
+        print(proc.stderr.strip(), flush=True)
     os.replace(tmp_path, lib_path)  # atomic: concurrent builders both succeed
     return lib_path
 
@@ -72,31 +108,122 @@ def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build_kernels())
-        fn = lib.orient_describe_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        table_p = ctypes.POINTER(LevelTable)
+        lib.orient_describe_launch.argtypes = [table_p] + [ctypes.c_void_p] * 4
+        lib.orient_describe_launch_empty.argtypes = [table_p] + [ctypes.c_void_p] * 2
+        for name in ("orient_describe_launch", "orient_describe_launch_empty",
+                     "orient_describe_table_bytes"):
+            getattr(lib, name).restype = ctypes.c_int
+        if lib.orient_describe_table_bytes() != ctypes.sizeof(LevelTable):
+            raise RuntimeError("the level table of csrc/orient_describe.cu and "
+                               "LevelTable differ in size")
         _lib = lib
     return _lib
 
 
-def _check_inputs(raw, blur, ys, xs, pattern) -> None:
-    if raw.dim() != 2 or blur.shape != raw.shape:
-        raise ValueError("raw and blur must be [H, W] images of one shape")
-    if raw.shape[0] < PATCH or raw.shape[1] < PATCH:
-        raise ValueError("level image smaller than the 31x31 patch")
-    if ys.dim() != 1 or xs.shape != ys.shape:
-        raise ValueError("ys and xs must be [K]")
-    if tuple(pattern.shape) != (256, 2, 2):
+def _check_tensor(name: str, t: torch.Tensor, dtype, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, raw on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_pattern(pattern: torch.Tensor, device) -> None:
+    if pattern.shape != (256, 2, 2):
         raise ValueError("pattern must be [256, 2, 2]")
-    for name, t, dt in (("raw", raw, torch.float32), ("blur", blur, torch.float32),
-                        ("ys", ys, torch.int32), ("xs", xs, torch.int32),
-                        ("pattern", pattern, torch.float32)):
-        if t.dtype != dt:
-            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
-        if t.device != raw.device:
-            raise ValueError(f"{name} is on {t.device}, raw on {raw.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_tensor("pattern", pattern, torch.float32, device)
+    if pattern.data_ptr() % 16:
+        raise ValueError("pattern must be 16-byte aligned")
+
+
+def build_level_table(raws: Sequence[torch.Tensor], blurs: Sequence[torch.Tensor],
+                      ys: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+                      budgets: Sequence[int]) -> LevelTable:
+    """Check one frame's levels and fill the table the launcher takes.
+
+    Level ``l`` owns output slots ``offset_l .. offset_l + budgets[l] - 1``
+    with ``offset_l = sum(budgets[:l])``; its first ``k_l = len(ys[l])``
+    slots are keypoints, the rest are written as zero. Raises on what the
+    kernel does not take: a wrong dtype, shape or device, a non-contiguous
+    tensor, more keypoints than budget, more than 16 levels."""
+    n = len(raws)
+    if not (len(blurs) == len(ys) == len(xs) == len(budgets) == n):
+        raise ValueError("raws, blurs, ys, xs and budgets must have one entry per level")
+    if not 1 <= n <= MAX_LEVELS:
+        raise ValueError(f"1 to {MAX_LEVELS} levels, got {n}")
+    device = raws[0].device
+    coord_dtype = ys[0].dtype
+    if coord_dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ys and xs must be int32 or int64, got {coord_dtype}")
+    table = LevelTable()
+    f32 = torch.float32
+    offset = 0
+    for i in range(n):
+        raw, blur, y, x, budget = raws[i], blurs[i], ys[i], xs[i], int(budgets[i])
+        if raw.dim() != 2 or blur.shape != raw.shape:
+            raise ValueError("raw and blur must be [H, W] images of one shape")
+        h, w = raw.shape
+        if h < PATCH or w < PATCH:
+            raise ValueError("level image smaller than the 31x31 patch")
+        if y.dim() != 1 or x.shape != y.shape:
+            raise ValueError("ys and xs must be [K]")
+        k = y.shape[0]
+        if k > budget:
+            raise ValueError(f"level {i}: {k} keypoints for a budget of {budget}")
+        if not (raw.dtype == blur.dtype == f32 and y.dtype == x.dtype == coord_dtype
+                and raw.device == blur.device == y.device == x.device == device
+                and raw.is_contiguous() and blur.is_contiguous()
+                and y.is_contiguous() and x.is_contiguous()):
+            for name, t, dtype in (("raw", raw, f32), ("blur", blur, f32),
+                                   ("ys", y, coord_dtype), ("xs", x, coord_dtype)):
+                _check_tensor(name, t, dtype, device)   # raises, naming the tensor
+        _LEVEL_ENTRY.pack_into(table, i * LEVEL_ENTRY_BYTES,
+                               raw.data_ptr(), blur.data_ptr(), y.data_ptr(),
+                               x.data_ptr(), h, w, k, budget, offset, 0)
+        offset += budget
+    table.n_levels = n
+    table.n_total = offset
+    table.coord_bytes = 4 if coord_dtype == torch.int32 else 8
+    return table
+
+
+def _launch(table: LevelTable, pattern: torch.Tensor, device
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the outputs and launch the kernel once on the current stream."""
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    lib = _load()
+    n_total = table.n_total
+    angle = torch.empty((n_total,), dtype=torch.float32, device=device)
+    desc = torch.empty((n_total, 8), dtype=torch.int32, device=device)
+    if n_total == 0:
+        return angle, desc
+    with torch.cuda.device(device):
+        err = lib.orient_describe_launch(
+            ctypes.byref(table), pattern.data_ptr(), angle.data_ptr(),
+            desc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"orient_describe_launch failed: CUDA error {err}")
+    fused_orient_describe.launches += 1
+    return angle, desc
+
+
+def launch_empty_kernel(table: LevelTable, scratch: torch.Tensor) -> None:
+    """Measurement aid, not part of the port's path: launch the library's
+    empty kernel on the grid ``table`` gives ``fused_orient_describe_levels``,
+    for the time no launch of that grid can beat. ``scratch``: any CUDA f32
+    tensor. Not counted in ``fused_orient_describe.launches``."""
+    _check_tensor("scratch", scratch, torch.float32, scratch.device)
+    if scratch.device.type != "cuda":
+        raise ValueError(f"unsupported device {scratch.device}")
+    with torch.cuda.device(scratch.device):
+        err = _load().orient_describe_launch_empty(
+            ctypes.byref(table), scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"orient_describe_launch_empty failed: CUDA error {err}")
 
 
 def fused_orient_describe_plain(raw: torch.Tensor, blur: torch.Tensor,
@@ -138,38 +265,68 @@ def fused_orient_describe_plain(raw: torch.Tensor, blur: torch.Tensor,
     return torch.atan2(m01, m10), pack_bits(bits)
 
 
+def fused_orient_describe_levels_plain(
+        raws: Sequence[torch.Tensor], blurs: Sequence[torch.Tensor],
+        ys: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+        pattern: torch.Tensor, budgets: Sequence[int]
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``fused_orient_describe_levels``: the
+    per-level plain version in a loop, each level padded with zeros up to its
+    budget, the levels concatenated. Works on any device."""
+    angles, descs = [], []
+    for raw, blur, y, x, budget in zip(raws, blurs, ys, xs, budgets):
+        angle, desc = fused_orient_describe_plain(raw, blur, y, x, pattern)
+        pad = int(budget) - y.shape[0]
+        if pad < 0:
+            raise ValueError(f"{y.shape[0]} keypoints for a budget of {budget}")
+        angles.append(F.pad(angle, (0, pad)))
+        descs.append(F.pad(desc, (0, 0, 0, pad)))
+    return torch.cat(angles), torch.cat(descs)
+
+
+def fused_orient_describe_levels(
+        raws: Sequence[torch.Tensor], blurs: Sequence[torch.Tensor],
+        ys: Sequence[torch.Tensor], xs: Sequence[torch.Tensor],
+        pattern: torch.Tensor, budgets: Sequence[int]
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All pyramid levels of one frame in one kernel launch.
+
+    raws/blurs: per level, [H_l, W_l] f32 level image and its blurred twin;
+    ys/xs: per level, [K_l] keypoint coords, all int32 or all int64;
+    pattern: [256, 2, 2] BRIEF pairs ((a, b) x (dx, dy)); budgets: per level,
+    the number of output slots (>= K_l).
+
+    -> (angle [sum(budgets)] f32 radians, desc [sum(budgets), 8] int32
+    bit-views of the packed 256-bit descriptors, ``pack_bits`` layout), the
+    levels one after another; slots past a level's K_l are zero.
+    """
+    table = build_level_table(raws, blurs, ys, xs, budgets)
+    device = raws[0].device
+    _check_pattern(pattern, device)
+    if device.type == "cpu":
+        return fused_orient_describe_levels_plain(raws, blurs, ys, xs, pattern, budgets)
+    return _launch(table, pattern, device)
+
+
 def fused_orient_describe(raw: torch.Tensor, blur: torch.Tensor,
                           ys: torch.Tensor, xs: torch.Tensor,
                           pattern: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """raw/blur: [H, W] f32 level images; ys/xs: [K] int32 keypoint coords;
-    pattern: [256, 2, 2] BRIEF pairs ((a, b) x (dx, dy)).
+    """One level: a table of one entry through the same kernel.
+
+    raw/blur: [H, W] f32 level images; ys/xs: [K] keypoint coords, both int32
+    or both int64; pattern: [256, 2, 2] BRIEF pairs ((a, b) x (dx, dy)).
 
     -> (angle [K] f32 radians, desc [K, 8] int32 bit-views of the packed
     256-bit descriptors, ``pack_bits`` layout).
     """
-    _check_inputs(raw, blur, ys, xs, pattern)
+    table = build_level_table((raw,), (blur,), (ys,), (xs,), (ys.shape[0],))
+    _check_pattern(pattern, raw.device)
     if raw.device.type == "cpu":
         return fused_orient_describe_plain(raw, blur, ys, xs, pattern)
-    if raw.device.type != "cuda":
-        raise ValueError(f"unsupported device {raw.device}")
-    lib = _load()
-    k = ys.shape[0]
-    angle = torch.empty((k,), dtype=torch.float32, device=raw.device)
-    desc = torch.empty((k, 8), dtype=torch.int32, device=raw.device)
-    if k == 0:
-        return angle, desc
-    with torch.cuda.device(raw.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.orient_describe_launch(
-            raw.data_ptr(), blur.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-            pattern.data_ptr(), angle.data_ptr(), desc.data_ptr(),
-            int(raw.shape[0]), int(raw.shape[1]), int(k), stream)
-    if err != 0:
-        raise RuntimeError(f"orient_describe_launch failed: CUDA error {err}")
-    fused_orient_describe.launches += 1
-    return angle, desc
+    return _launch(table, pattern, raw.device)
 
 
-# launches of the CUDA kernel made through the wrapper (read by chip_smoke.py)
+# launches of the CUDA kernel made through either wrapper (read by
+# chip_smoke.py): one per frame on the main path
 fused_orient_describe.launches = 0

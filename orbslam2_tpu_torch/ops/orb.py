@@ -248,6 +248,14 @@ class ORBExtractor:
         self.pattern_t = torch.tensor(self.pattern, dtype=torch.float32,
                                       device=self.device)
         self.blur_kernel = gaussian_kernel1d(2.0, 3)  # 7x7 sigma=2
+        # per-slot constants of the frame-wide outputs, levels one after another
+        def per_slot(values, dtype):
+            return torch.cat([torch.full((b,), v, dtype=dtype, device=self.device)
+                              for b, v in zip(budgets, values)])
+
+        self._slot_scale = per_slot([float(s) for s in self.scales], torch.float32)
+        self._slot_octave = per_slot(range(c.n_levels), torch.int32)
+        self._slot_size = per_slot([PATCH * float(s) for s in self.scales], torch.float32)
 
     # ------------------------------------------------------------------
     def __call__(self, image: torch.Tensor) -> Keypoints:
@@ -257,23 +265,46 @@ class ORBExtractor:
 
     def extract_with_pyramid(self, image: torch.Tensor):
         """Like __call__ but also returns the per-level *blurred* pyramid
-        (tuple of [lh, lw] f32 tensors) for consumers that reuse it."""
-        per_level = []
-        pyramid = []
-        img = image
+        (tuple of [lh, lw] f32 tensors) for consumers that reuse it.
+
+        Keypoints are selected level by level; orientation and descriptors of
+        all levels then come from one call of the fused kernel. ``octave`` and
+        ``size`` of the result are the extractor's own constant tensors,
+        shared by every frame: read them, do not write to them."""
+        raws, pyramid, ys, xs, scores = [], [], [], [], []
+        img = image.contiguous()
         for level in range(self.config.n_levels):
             if level > 0:
                 # cascaded pyramid: each level resampled from the previous
                 img = _resize_bilinear(img, self.level_shapes[level])
-            blurred = _separable_conv(img, self.blur_kernel)
-            pyramid.append(blurred)
-            per_level.append(self._extract_level(img, level, blurred))
-        return self._concat_levels(per_level), tuple(pyramid)
+            raws.append(img)
+            pyramid.append(_separable_conv(img, self.blur_kernel))
+            y, x, sel_score, _ = self._select_level(img, level)
+            ys.append(y)
+            xs.append(x)
+            scores.append(sel_score)
 
-    def _concat_levels(self, per_level) -> Keypoints:
-        return Keypoints(**{
-            f.name: torch.cat([getattr(k, f.name) for k in per_level], dim=0)
-            for f in dataclasses.fields(Keypoints)})
+        angle, desc = cuda_orb.fused_orient_describe_levels(
+            raws, pyramid, ys, xs, self.pattern_t, self.level_budgets)
+
+        # the other fields, frame-wide: a level with fewer candidates than
+        # its budget is padded up to it (coordinates 0, score -inf)
+        for level, budget in enumerate(self.level_budgets):
+            pad = budget - ys[level].shape[0]
+            if pad > 0:
+                ys[level] = F.pad(ys[level], (0, pad))
+                xs[level] = F.pad(xs[level], (0, pad))
+                scores[level] = F.pad(scores[level], (0, pad), value=float("-inf"))
+        score = torch.cat(scores)
+        valid = torch.isfinite(score)
+        xy = torch.stack([torch.cat(xs).to(torch.float32),
+                          torch.cat(ys).to(torch.float32)], dim=-1)
+        kp = Keypoints(
+            xy=xy * self._slot_scale[:, None],
+            response=torch.where(valid, score, torch.zeros_like(score)),
+            angle=angle, octave=self._slot_octave, size=self._slot_size,
+            desc=desc, valid=valid)
+        return kp, tuple(pyramid)
 
     # ------------------------------------------------------------------
     def _select_level(self, img: torch.Tensor, level: int):
@@ -334,37 +365,6 @@ class ORBExtractor:
         ys = py.reshape(-1)[sel].clamp(0, lh - 1)
         xs = px.reshape(-1)[sel].clamp(0, lw - 1)
         return ys, xs, sel_score, torch.isfinite(sel_score)
-
-    def _extract_level(self, img: torch.Tensor, level: int,
-                       blurred: torch.Tensor) -> Keypoints:
-        budget = self.level_budgets[level]
-        ys, xs, sel_score, valid = self._select_level(img, level)
-        k = ys.shape[0]
-
-        angle, desc = cuda_orb.fused_orient_describe(
-            img.contiguous(), blurred.contiguous(),
-            ys.to(torch.int32), xs.to(torch.int32), self.pattern_t)
-
-        scale = float(self.scales[level])
-        xy0 = torch.stack([xs.to(torch.float32), ys.to(torch.float32)], dim=-1) * scale
-        if k < budget:  # pad up to the static budget
-            pad = budget - k
-            xy0 = F.pad(xy0, (0, 0, 0, pad))
-            sel_score = F.pad(sel_score, (0, pad), value=float("-inf"))
-            angle = F.pad(angle, (0, pad))
-            desc = F.pad(desc, (0, 0, 0, pad))
-            valid = F.pad(valid, (0, pad))
-        dev = img.device
-        return Keypoints(
-            xy=xy0,
-            response=torch.where(torch.isfinite(sel_score), sel_score,
-                                 torch.zeros_like(sel_score)),
-            angle=angle,
-            octave=torch.full((budget,), level, dtype=torch.int32, device=dev),
-            size=torch.full((budget,), PATCH * scale, dtype=torch.float32, device=dev),
-            desc=desc,
-            valid=valid,
-        )
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Per-stage timing instrumentation.
+"""Per-stage timing instrumentation, and a kernel's own time on the card.
 
 Own copy of the ``StageTimer`` of ``orbslam2_tpu/utils/profiling.py``:
 named-stage wall-clock statistics (median/mean/p95), usable as a context
@@ -6,6 +6,11 @@ manager around pipeline stages. The tracker carries one as ``tracker.stats``
 (off by default; enable with ``SLAMConfig.profile_stages``). Stages time the
 host clock: work queued on a CUDA device is included only where the stage
 ends in a fetch or a synchronisation.
+
+``event_ms``, ``kernel_device_ms`` and ``queued_ms`` time work on a CUDA
+device (``torch`` is imported inside them). ``event_ms`` is paced by the host
+wherever the host sends work more slowly than the card finishes it; the
+other two give the card's own time.
 """
 from __future__ import annotations
 
@@ -66,3 +71,83 @@ class StageTimer:
 
     def reset(self) -> None:
         self.samples.clear()
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn``, by CUDA events around a loop of
+    ``reps`` calls, after a warm-up. Host-paced for short kernels."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int, kernel_name: str, tries: int = 3):
+    """Mean device milliseconds of one kernel whose name contains
+    ``kernel_name``, over ``reps`` calls of ``fn``: its durations as
+    ``torch.profiler`` traced them on the card. -> (ms per kernel, kernels
+    traced); (None, 0) where no trace of ``tries`` held device time for the
+    name. The trace may drop events, so the caller multiplies by the launches
+    it knows a call makes rather than trusting the count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if kernel_name in e.key and e.device_type.name != "CPU":
+                total_us += getattr(e, "self_device_time_total",
+                                    getattr(e, "self_cuda_time_total", 0.0))
+                count += e.count
+        if count > 0 and total_us > 0.0:
+            return total_us / count / 1e3, count
+    return None, 0
+
+
+def queued_ms(fn, reps: int, hold_cycles: int = 100_000_000) -> float:
+    """Device milliseconds per call of ``fn`` without the host's pace: the
+    calls are queued behind a spin kernel of ``hold_cycles`` clock cycles
+    (about 50 ms) that outlasts their sending, so the events around them see
+    the card run them back to back. Includes the gaps between launches.
+    Raises if the host took longer to send the calls than the spin lasted."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(hold_cycles)
+    end.record()
+    torch.cuda.synchronize()
+    hold_ms = start.elapsed_time(end)
+
+    t0 = time.perf_counter()
+    torch.cuda._sleep(hold_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    send_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if send_ms >= hold_ms:
+        raise RuntimeError(f"the host took {send_ms:.2f} ms to send {reps} calls, "
+                           f"the spin kernel held the card {hold_ms:.2f} ms")
+    return start.elapsed_time(end) / reps

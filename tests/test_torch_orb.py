@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from orbslam2_tpu.ops import orb as jorb
-from orbslam2_tpu_torch.ops import orb as torb
+from orbslam2_tpu_torch.ops import cuda_orb, orb as torb
 
 from torch_port_helpers import angle_diff, desc_np, hamming_rows, j, n, t
 
@@ -134,6 +134,71 @@ def test_extractor_matches_jax(shape, n_features, n_levels):
     assert np.median(ham) <= 4 and ham.max() <= 40, ham
     assert (ham == 0).mean() >= 0.9, (ham == 0).mean()
     assert kt.desc.dtype == torch.int32 and kt.octave.dtype == torch.int32
+
+
+def _extract_level_by_level(ex, image):
+    """The extractor's earlier route, kept here as the reference: one call of
+    the fused function per level, every field padded per level, the levels
+    concatenated field by field."""
+    F = torch.nn.functional
+    fields = {name: [] for name in ("xy", "response", "angle", "octave", "size",
+                                    "desc", "valid")}
+    img = image
+    for level in range(ex.config.n_levels):
+        if level > 0:
+            img = torb._resize_bilinear(img, ex.level_shapes[level])
+        blurred = torb._separable_conv(img, ex.blur_kernel)
+        budget = ex.level_budgets[level]
+        ys, xs, sel_score, valid = ex._select_level(img, level)
+        angle, desc = cuda_orb.fused_orient_describe(
+            img.contiguous(), blurred.contiguous(),
+            ys.to(torch.int32), xs.to(torch.int32), ex.pattern_t)
+        scale = float(ex.scales[level])
+        xy0 = torch.stack([xs.to(torch.float32), ys.to(torch.float32)], dim=-1) * scale
+        pad = budget - ys.shape[0]
+        if pad > 0:
+            xy0 = F.pad(xy0, (0, 0, 0, pad))
+            sel_score = F.pad(sel_score, (0, pad), value=float("-inf"))
+            angle = F.pad(angle, (0, pad))
+            desc = F.pad(desc, (0, 0, 0, pad))
+            valid = F.pad(valid, (0, pad))
+        fields["xy"].append(xy0)
+        fields["response"].append(torch.where(torch.isfinite(sel_score), sel_score,
+                                              torch.zeros_like(sel_score)))
+        fields["angle"].append(angle)
+        fields["octave"].append(torch.full((budget,), level, dtype=torch.int32))
+        fields["size"].append(torch.full((budget,), torb.PATCH * scale,
+                                         dtype=torch.float32))
+        fields["desc"].append(desc)
+        fields["valid"].append(valid)
+    return torb.Keypoints(**{k: torch.cat(v) for k, v in fields.items()})
+
+
+@pytest.mark.parametrize("shape,n_features,n_levels", [
+    ((120, 160), 200, 3), ((240, 320), 800, 4), ((120, 160), 2000, 3),
+    ((97, 131), 300, 5)])
+def test_extractor_fields_equal_the_level_by_level_route(shape, n_features, n_levels):
+    """One fused call for all levels must leave every Keypoints field bit for
+    bit as the per-level route gave it; the third case has levels with fewer
+    candidates than budget (padded slots)."""
+    img = t(_scene(6, *shape))
+    ex = torb.ORBExtractor(torb.ORBConfig(n_features=n_features, n_levels=n_levels),
+                           shape, device="cpu")
+    got, pyramid = ex.extract_with_pyramid(img)
+    want = _extract_level_by_level(ex, img)
+    assert got.n == ex.n_total and len(pyramid) == n_levels
+    assert [tuple(p.shape) for p in pyramid] == ex.level_shapes
+    for name in ("xy", "response", "angle", "octave", "size", "desc", "valid"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+    assert got.valid.sum() > 0.25 * min(n_features, 400)
+    if n_features == 2000:   # level 0: 20 cells x 8 candidates for 791 slots
+        pad = slice(160, ex.level_budgets[0])
+        assert not got.valid[pad].any() and (got.desc[pad] == 0).all()
+        assert (got.angle[pad] == 0).all() and (got.xy[pad] == 0).all()
+    again, _ = ex.extract_with_pyramid(img)       # shared constants stay intact
+    assert torch.equal(again.octave, want.octave) and torch.equal(again.size, want.size)
 
 
 def test_extractor_entry_points_default_to_the_card():
