@@ -19,17 +19,41 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             events (host-paced), the kernel's own duration on the card, eight
             one-level calls, the plain version, the bytes bound and the
             duration of an empty kernel on the same grid
-4. main     60 frames of the 640x480 / 2000-feature / 8-level RGB-D drive
-            (shuttle trajectory, cluttered world) through
-            SLAMSystem.track_rgbd on the card, with the kernel's launch count
-            (one per frame), tracked frames, keyframes, map points, ATE, ms
-            per frame and the SM clock sampled beside the drive
+4. tracker  the first 30 frames of the 640x480 / 2000-feature / 8-level
+            RGB-D drive (shuttle trajectory, cluttered world) through a
+            Tracker without a local mapper (the path of the port's first
+            slice), with the kernel's launch count (one per frame), tracked
+            frames, keyframes, map points, ATE, ms per frame and the SM clock
+            sampled beside the drive
+5. main     60 frames of the same drive through SLAMSystem.track_rgbd with
+            the mapping worker on (async_mapping, the default): every
+            keyframe triangulated, fused, bundle-adjusted and culled on the
+            worker's thread while the tracker goes on with the next frames
+            (frames are sent back to back, as bench.py's bench_system sends
+            them; the worker is waited for only before the trajectory is
+            read). Tracked frames, keyframes created and culled, live
+            points, points triangulated, observations fused, points merged,
+            local BAs applied, skipped and dropped, stage conflicts, ATE, ms
+            per frame, the mapper's stage times and the kernel's launch count
+6. ba       the last local-BA problem that drive's mapper solved, solved
+            again on the card and on the CPU in float64, as the mapper
+            stages it: largest pose and point differences and the share of
+            observations that change class; then the same problem in float32
+            on the card, and the card's time of one solve in each precision
+7. searches the mapper's triangulation (every keypoint free) and fuse
+            searches on the drive's final map, on the card and on the CPU
+8. keyframes the first 30 frames of the drive through SLAMSystem with the
+            mapping worker and a keyframe every third frame, so that
+            triangulation has free keypoints to pair, frames back to back as
+            in phase 5: its counts, and a failure unless points were
+            triangulated
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -38,11 +62,17 @@ import time
 import numpy as np
 import torch
 
-from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, TrackingState
+from orbslam2_tpu_torch.backend import ba
+from orbslam2_tpu_torch.frontend import kernels, local_mapping
+from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
+from orbslam2_tpu_torch.frontend.triangulation import triangulate_neighbors
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.io.evaluate import ate_rmse
 from orbslam2_tpu_torch.io.synthetic import SyntheticSequence
 from orbslam2_tpu_torch.ops import cuda_orb, orb
+from orbslam2_tpu_torch.slammap import covisibility
+from orbslam2_tpu_torch.slammap.device_map import FIELDS as DEVICE_MIRROR_FIELDS
+from orbslam2_tpu_torch.slammap.device_map import DeviceKFStore, DeviceMapMirror
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 from orbslam2_tpu_torch.utils.profiling import event_ms, kernel_device_ms, queued_ms
 
@@ -57,8 +87,19 @@ HAMMING_MEDIAN_MAX = 4
 HAMMING_MAX = 40
 
 ATE_MAX_M = 0.10
-N_FRAMES = 60
+N_FRAMES = 60             # the mapped drive (phase 5)
+N_FRAMES_TRACKER = 30     # the drive without a local mapper (phase 4)
+N_FRAMES_DENSE = 30       # the keyframe-dense mapped drive (phase 8)
+KF_EVERY = 3              # its keyframe cadence (SLAMConfig.force_kf_every)
 WARM_FRAMES = 5           # frames before the timed steady-state window
+# local BA on the card against the CPU, both in float64 as the mapper stages
+# the problem: the card sums observations into the Hessian blocks in atomic
+# order, so the two solves differ by rounding. They differed by 0 and by
+# 1e-11 m on the drive's last window (PERF.md); a card solve that
+# mis-sums a Hessian block lands millimetres away.
+BA_TRANSLATION_TOL_M = 1e-6
+BA_TIMED_SOLVES = 5       # solves timed per precision on the card
+BA_CLASS_CHANGE_MAX = 0.01
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -300,14 +341,15 @@ def check_kernel(ex, frame0) -> dict:
                          "kernel's own duration on the card"}
 
 
-def drive_main_path(system, frames, seq) -> dict:
-    """Phase 4: the drive through SLAMSystem.track_rgbd and its checks.
-    -> the main path's measured entries of the `kernels` line."""
-    print("[main] SLAMSystem.track_rgbd, 640x480 / 2000 features / 8 levels", flush=True)
-    tracker = system.tracker
+def drive(name, track, tracker, frames, seq) -> dict:
+    """Drive `track` over `frames`, back to back, with the kernel's launch
+    count set to 0 just before and read just after, and check the drive:
+    every frame after initialisation tracked, one launch a frame. -> the
+    drive's measured entries."""
+    n_frames = len(frames)
     cuda_orb.fused_orient_describe.launches = 0
     frame_ms = []
-    tracked = fused_frames = 0
+    tracked = 0
     first_ok = t_steady = None
     with ClockSampler() as clocks:
         for i, (gray, depth) in enumerate(frames):
@@ -316,65 +358,354 @@ def drive_main_path(system, frames, seq) -> dict:
                 t_steady = time.perf_counter()
             before = cuda_orb.fused_orient_describe.launches
             t_frame = time.perf_counter()
-            tcw = system.track_rgbd(gray, depth, i / seq.fps)
+            tcw = track(gray, depth, i / seq.fps)
             frame_ms.append((time.perf_counter() - t_frame) * 1e3)  # ends in a fetch
             built = cuda_orb.fused_orient_describe.launches - before
             if built != 1:
-                fail(f"frame {i}: {built} kernel launches, expected 1")
-            # the fused step leaves its associations on the card as the carry
-            # (cleared again on frames that insert a keyframe)
-            fused_frames += tracker._last_pid_dev is not None
+                fail(f"{name}: frame {i}: {built} kernel launches, expected 1")
             if tcw is not None:
                 tracked += 1
                 if first_ok is None:
                     first_ok = i
             elif first_ok is not None:
-                fail(f"frame {i} lost after initialisation at frame {first_ok}")
+                fail(f"{name}: frame {i} lost after initialisation at frame {first_ok}")
         torch.cuda.synchronize()
-        ms_per_frame = (time.perf_counter() - t_steady) / (N_FRAMES - WARM_FRAMES) * 1e3
+        n_steady = n_frames - WARM_FRAMES
+        ms_per_frame = (time.perf_counter() - t_steady) / n_steady * 1e3
     launches = cuda_orb.fused_orient_describe.launches
     steady = np.array(frame_ms[WARM_FRAMES:])
+    fused_frames = tracker.stats.summary().get("fused_step", {}).get("n", 0)
 
-    if first_ok is None or system.tracking_state() != TrackingState.OK:
-        fail("the system did not initialise")
+    if first_ok is None or tracker.state != TrackingState.OK:
+        fail(f"{name}: the tracker did not initialise")
     lf = tracker.last_frame
-    mir = system.map.device_mirror(tracker.device)
+    mir = tracker.map.device_mirror(tracker.device)
     on_card = [lf.ur, lf.depth, *mir.arrays.values(),
                *(getattr(lf.kp, f) for f in ("xy", "response", "angle", "octave",
                                              "size", "desc", "valid"))]
     if tracker._last_pid_dev is not None:
         on_card.append(tracker._last_pid_dev)
-    if fused_frames < N_FRAMES // 2:
-        fail(f"only {fused_frames} frames went through the fused step")
+    if fused_frames < n_frames // 2:
+        fail(f"{name}: only {fused_frames} frames went through the fused step")
     if any(t.device.type != "cuda" for t in on_card):
-        fail("a tensor of the fused step is not on the card")
-    if launches != N_FRAMES:
-        fail(f"{launches} launches on the main path, expected {N_FRAMES}")
+        fail(f"{name}: a tensor of the fused step is not on the card")
+    if launches != n_frames:
+        fail(f"{name}: {launches} launches, expected {n_frames}")
+    return dict(launches=launches, first_ok=first_ok, tracked=tracked,
+                fused_frames=fused_frames,
+                revalidated_frames=tracker.revalidated_frames, ms_per_frame=ms_per_frame,
+                median_ms=float(np.median(steady)),
+                p95_ms=float(np.percentile(steady, 95)),
+                mhz=clocks.mhz or [float("nan")])
+
+
+def check_trajectory(name, tracker, seq, d) -> float:
+    n_frames = len(tracker.trajectory)
     lost = tracker.trajectory_lost_mask()
-    if lost[first_ok:].any():
-        fail(f"lost frames after initialisation: {np.where(lost)[0].tolist()}")
+    if lost[d["first_ok"]:].any():
+        fail(f"{name}: lost frames after initialisation: {np.where(lost)[0].tolist()}")
     est = tracker.full_trajectory_twc()
-    gt = np.stack([np.linalg.inv(seq.poses[i]) for i in range(N_FRAMES)])
-    if not np.isfinite(est).all() or est.shape != (N_FRAMES, 4, 4):
-        fail("trajectory is not finite or has the wrong shape")
-    ate = ate_rmse(est[first_ok:], gt[first_ok:])
-    mhz = clocks.mhz or [float("nan")]
-    print(f"  frames tracked {tracked}/{N_FRAMES}, keyframes {system.map.n_keyframes()}, "
-          f"map points {system.map.n_points()}, ATE-RMSE {ate:.4f} m, "
-          f"{ms_per_frame:.2f} ms per steady-state frame "
-          f"(frames {WARM_FRAMES}..{N_FRAMES - 1}, host clock around a synchronised loop), "
-          f"median {np.median(steady):.2f} ms, p95 {np.percentile(steady, 95):.2f} ms; "
-          f"kernel launches {launches}, fused frames {fused_frames}; "
-          f"SM clock over the drive min/median/max "
-          f"{min(mhz):.0f}/{np.median(mhz):.0f}/{max(mhz):.0f} MHz "
-          f"({len(clocks.mhz)} samples)", flush=True)
+    gt = np.stack([np.linalg.inv(seq.poses[i]) for i in range(n_frames)])
+    if not np.isfinite(est).all() or est.shape != (n_frames, 4, 4):
+        fail(f"{name}: trajectory is not finite or has the wrong shape")
+    return ate_rmse(est[d["first_ok"]:], gt[d["first_ok"]:])
+
+
+def describe(name, tracker, d, ate, n_frames) -> None:
+    mhz = d["mhz"]
+    print(f"  frames tracked {d['tracked']}/{n_frames}, keyframes "
+          f"{tracker.map.n_keyframes()}, map points {tracker.map.n_points()}, "
+          f"ATE-RMSE {ate:.4f} m, {d['ms_per_frame']:.2f} ms per steady-state frame "
+          f"(frames {WARM_FRAMES}..{n_frames - 1}, host clock around a synchronised "
+          f"loop), median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms; kernel "
+          f"launches {d['launches']}, fused frames {d['fused_frames']} ({d['revalidated_frames']} "
+          f"dropped associations the mapper changed mid-step); SM clock over "
+          f"the drive min/median/max {min(mhz):.0f}/{np.median(mhz):.0f}/{max(mhz):.0f} "
+          f"MHz ({len(mhz)} samples)", flush=True)
     print(tracker.stats.report(), flush=True)
     if ate > ATE_MAX_M:
-        fail(f"ATE {ate:.4f} m above {ATE_MAX_M} m")
-    return {"launches": launches, "launches_per_frame": launches // N_FRAMES,
-            "main_path_ms_per_frame": ms_per_frame,
-            "main_path_median_ms": float(np.median(steady)),
-            "sm_clock_mhz_median": float(np.median(mhz)), "ate_m": ate}
+        fail(f"{name}: ATE {ate:.4f} m above {ATE_MAX_M} m")
+
+
+def drive_tracker_alone(cfg, frames, seq) -> dict:
+    """Phase 4: a Tracker without a local mapper (the first slice's path)."""
+    frames = frames[:N_FRAMES_TRACKER]
+    print(f"[tracker] Tracker.track_rgbd without a local mapper, {len(frames)} frames, "
+          "640x480 / 2000 features / 8 levels", flush=True)
+    tracker = Tracker(cfg)                       # default device: the card
+    d = drive("tracker", tracker.track_rgbd, tracker, frames, seq)
+    ate = check_trajectory("tracker", tracker, seq, d)
+    describe("tracker", tracker, d, ate, len(frames))
+    return dict(launches=d["launches"], ate_m=ate, ms_per_frame=d["ms_per_frame"],
+                median_ms=d["median_ms"])
+
+
+class BACapture:
+    """Keeps the last problem the local mapper hands to bundle_adjust (on the
+    worker's thread) while the context is open."""
+
+    def __enter__(self):
+        self.solve = local_mapping.ba.bundle_adjust
+        self.last = None
+
+        def capture(problem, cam, point_fixed=None, **kw):
+            self.last = (problem, point_fixed)
+            return self.solve(problem, cam, point_fixed=point_fixed, **kw)
+
+        local_mapping.ba.bundle_adjust = capture
+        return self
+
+    def __exit__(self, *exc):
+        local_mapping.ba.bundle_adjust = self.solve
+
+
+def drive_mapped(name, cfg, frames, seq, what):
+    """A drive through SLAMSystem with the mapping worker on the card, frames
+    back to back as bench.py's bench_system sends them: the worker maps each
+    keyframe beside the tracker, and is waited for only before the
+    trajectory is read. -> (entries, system, the last local-BA problem); the
+    system's worker is stopped."""
+    print(f"[{name}] SLAMSystem.track_rgbd with the mapping worker, {what}, "
+          f"{len(frames)} frames back to back, 640x480 / 2000 features / 8 levels",
+          flush=True)
+    system = SLAMSystem(cfg, Sensor.RGBD)        # default device: the card
+    if system.mapping_worker is None or system.local_mapper.device.type != "cuda":
+        fail(f"{name}: the mapping worker is not running on the card")
+    tracker, mapper = system.tracker, system.local_mapper
+
+    with BACapture() as captured:
+        d = drive(name, system.track_rgbd, tracker, frames, seq)
+        t0 = time.perf_counter()
+        if not system.wait_mapping_idle(300):   # raises the worker's exception
+            fail(f"{name}: the mapping worker did not become idle within 300 s")
+        wait_s = time.perf_counter() - t0
+    ate = check_trajectory(name, tracker, seq, d)
+    c = mapper.counts
+    n_created = int(tracker.map._kf_counter)
+    print(f"  keyframes created {n_created}, culled {c['kf_culled']}, live "
+          f"{tracker.map.n_keyframes()}; points live {tracker.map.n_points()}, "
+          f"triangulated {c['points_created']}; fusion: observations added "
+          f"{c['obs_fused']}, points merged {c['points_merged']}; local BAs applied "
+          f"{c['ba_applied']}, dropped {c['ba_dropped']} (correction_gen), skipped "
+          f"{c['ba_skipped']} (a keyframe waiting or the tracker asking for one); stage "
+          f"conflicts rerun {c['conflicts']}; the worker went idle {wait_s:.2f} s after "
+          f"the last frame", flush=True)
+    print("  mapper stages (per keyframe, worker thread):", flush=True)
+    print(mapper.stats.report(), flush=True)
+    describe(name, tracker, d, ate, len(frames))
+    if c["ba_applied"] < 1:
+        fail(f"{name}: no local BA was applied")
+    if mapper.stats.summary().get("tri_dev", {}).get("n", 0) < 1:
+        fail(f"{name}: no triangulation search ran on the card")
+    system.shutdown()                # joins the worker; raises its exception
+    summary = mapper.stats.summary()
+    return dict(launches=d["launches"], ate_m=ate, ms_per_frame=d["ms_per_frame"],
+                median_ms=d["median_ms"], p95_ms=d["p95_ms"],
+                idle_after_last_frame_s=wait_s,
+                sm_clock_mhz_median=float(np.median(d["mhz"])),
+                keyframes_created=n_created, keyframes_culled=c["kf_culled"],
+                points_live=int(tracker.map.n_points()),
+                points_triangulated=c["points_created"], obs_fused=c["obs_fused"],
+                points_merged=c["points_merged"], local_ba_applied=c["ba_applied"],
+                local_ba_dropped=c["ba_dropped"], local_ba_skipped=c["ba_skipped"],
+                mapper_stage_median_ms={k: v["median_ms"] for k, v in summary.items()},
+                local_ba_conflicts=c["conflicts"],
+                fused_frames=d["fused_frames"], revalidated_frames=d["revalidated_frames"],
+                tracker_stage_median_ms={k: v["median_ms"] for k, v in
+                                         tracker.stats.summary().items()}), system, captured.last
+
+
+def drive_main_path(cfg, frames, seq):
+    """Phase 5: bench_system's drive with the mapping worker, frames back to
+    back. Depth gives nearly every keypoint of this scene a point when its
+    keyframe is inserted, so triangulation is checked to have searched, and
+    the keyframe-dense drive (phase 8) checks that it creates points."""
+    return drive_mapped("main", cfg, frames, seq, "bench_system's keyframe policy")
+
+
+def drive_keyframe_dense(cfg, frames, seq) -> dict:
+    """Phase 8: the mapped drive with a keyframe every third frame. Points of
+    the new keyframes that tracking drops as outliers leave keypoints free
+    in two covisible keyframes, so triangulation has work; the phase fails
+    without a triangulated point."""
+    frames = frames[:N_FRAMES_DENSE]
+    d, _, _ = drive_mapped("keyframes", dataclasses.replace(cfg, force_kf_every=KF_EVERY),
+                           frames, seq, f"a keyframe every {KF_EVERY} frames")
+    if d["points_triangulated"] < 1:
+        fail("keyframes: no point was triangulated")
+    return d
+
+
+def rotation_angle(r: np.ndarray) -> np.ndarray:
+    """Angle of rotations [..., 3, 3], accurate for small angles too."""
+    r = r.astype(np.float64)
+    sin = 0.5 * np.linalg.norm(np.stack([r[..., 2, 1] - r[..., 1, 2], r[..., 0, 2] - r[..., 2, 0],
+                                         r[..., 1, 0] - r[..., 0, 1]], -1), axis=-1)
+    cos = (np.trace(r, axis1=-2, axis2=-1) - 1.0) * 0.5
+    return np.arctan2(sin, cos)
+
+
+def timed_solve(problem, cam, pt_fixed):
+    """bundle_adjust once to warm up, then BA_TIMED_SOLVES times. -> (every
+    timed result as numpy, median ms by the host clock around a synchronised
+    call)."""
+    sync = torch.cuda.synchronize if problem.poses.is_cuda else (lambda: None)
+    ba.bundle_adjust(problem, cam, point_fixed=pt_fixed)
+    outs, times = [], []
+    for _ in range(BA_TIMED_SOLVES):
+        sync()
+        t0 = time.perf_counter()
+        out = ba.bundle_adjust(problem, cam, point_fixed=pt_fixed)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        outs.append([x.cpu().numpy() for x in out])
+    return outs, float(np.median(times))
+
+
+def check_ba_card_vs_cpu(staged, cam) -> dict:
+    """Phase 6: the last local-BA problem the drive's mapper solved, solved
+    again on the card and on the CPU in float64 (as the mapper stages it),
+    then in float32 on the card."""
+    if staged is None:
+        fail("the drive solved no local-BA problem")
+    problem, pt_fixed = staged
+    if problem.poses.dtype != torch.float64 or not problem.poses.is_cuda:
+        fail(f"the mapper staged its local BA as {problem.poses.dtype} on "
+             f"{problem.poses.device}, expected float64 on the card")
+    k, p, o = problem.poses.shape[0], problem.points.shape[0], problem.obs_cam.shape[0]
+    n_obs = int(problem.obs_valid.sum())
+    print(f"[ba] last local BA of the drive: {k} camera slots "
+          f"({int((~problem.cam_fixed).sum())} free), {p} point slots, {o} observation "
+          f"slots ({n_obs} valid); card vs CPU", flush=True)
+    as32 = ba.BAProblem(*(x.to(torch.float32) if x.is_floating_point() else x
+                          for x in problem))
+    cards, card_ms = timed_solve(problem, cam, pt_fixed)
+    cpus, cpu_ms = timed_solve(ba.BAProblem(*(x.cpu() for x in problem)), cam,
+                               pt_fixed.cpu())
+    cards32, card32_ms = timed_solve(as32, cam, pt_fixed)
+    pu, xu, iu, cu = cpus[0]
+    for pc, xc, _, cc in cards:
+        if not (np.isfinite(pc).all() and np.isfinite(xc).all() and np.isfinite(cc)):
+            fail("the card's local BA is not finite")
+    centre = lambda t: -np.einsum("kji,kj->ki", t[:, :3, :3].astype(np.float64),
+                                  t[:, :3, 3].astype(np.float64))
+
+    def pose_diff(a):
+        rot = float(rotation_angle(a[:, :3, :3] @ pu[:, :3, :3].transpose(0, 2, 1)).max())
+        return rot, float(np.linalg.norm(centre(a) - centre(pu), axis=1).max())
+
+    valid = problem.obs_valid.cpu().numpy()
+    free_pts = ~pt_fixed.cpu().numpy()
+
+    def worst(outs):
+        """Largest differences from the CPU's float64 solve over the card's
+        timed solves (each sums in its own atomic order)."""
+        diffs = [(*pose_diff(p), float(np.abs(x - xu)[free_pts].max()),
+                  int((i != iu)[valid].sum())) for p, x, i, _ in outs]
+        return [max(col) for col in zip(*diffs)]
+
+    rot, trans, point, n_changed = worst(cards)
+    rot32, trans32, point32, n_changed32 = worst(cards32)
+    changed, changed32 = n_changed / max(n_obs, 1), n_changed32 / max(n_obs, 1)
+    ic, cc = cards[-1][2], cards[-1][3]
+    print(f"  float64, card vs CPU, worst of {BA_TIMED_SOLVES} card solves: pose difference "
+          f"rotation {rot:.3e} rad, camera centre {trans:.3e} m (limit "
+          f"{BA_TRANSLATION_TOL_M}); point difference {point:.3e} m; observations changing "
+          f"class {changed * 100:.3f} % ({n_changed} of {n_obs}); inliers card "
+          f"{int(ic[valid].sum())} CPU {int(iu[valid].sum())}; cost card {float(cc):.6f} "
+          f"CPU {float(cu):.6f}\n"
+          f"  float32 on the card vs float64 on the CPU, worst of {BA_TIMED_SOLVES}: rotation "
+          f"{rot32:.3e} rad, camera centre {trans32:.3e} m, point {point32:.3e} m, "
+          f"observations changing class {changed32 * 100:.3f} %, cost "
+          f"{float(cards32[-1][3]):.6f} (reported, not checked)\n"
+          f"  one solve, median of {BA_TIMED_SOLVES} after a warm-up, host clock around a "
+          f"synchronised call: card float64 {card_ms:.2f} ms, card float32 "
+          f"{card32_ms:.2f} ms, CPU float64 {cpu_ms:.2f} ms", flush=True)
+    if trans > BA_TRANSLATION_TOL_M:
+        fail(f"local BA: camera centres differ by {trans} m (limit {BA_TRANSLATION_TOL_M})")
+    if changed > BA_CLASS_CHANGE_MAX:
+        fail(f"local BA: {changed * 100:.2f} % of observations change class "
+             f"(limit {BA_CLASS_CHANGE_MAX * 100} %)")
+    return dict(ba_rotation_diff_rad=rot, ba_centre_diff_m=trans, ba_point_diff_m=point,
+                ba_class_change_share=changed, ba_card_f64_ms=card_ms,
+                ba_card_f32_ms=card32_ms, ba_cpu_f64_ms=cpu_ms,
+                ba_f32_centre_diff_m=trans32, ba_f32_point_diff_m=point32,
+                ba_f32_class_change_share=changed32)
+
+
+def check_mapping_searches(system, cam, orb_cfg) -> dict:
+    """Phase 7: the mapper's two device searches at full width on the card
+    against the CPU, on the drive's final map: triangulation of the newest
+    keyframe against its best covisible neighbours with every keypoint
+    treated as free (in this drive depth gives nearly every keypoint a point
+    at insertion, so the mapper's own triangulations find few free pairs),
+    and the fuse of every live point into those keyframes."""
+    m = system.map
+    kfs = m.keyframe_ids()
+    kf = int(kfs[-1])
+    w = covisibility.weight_matrix(m)
+    nbs = [int(k) for k in covisibility.best_covisible(w, kf, 10)]
+    if not nbs:
+        fail("the newest keyframe has no covisible neighbour")
+    print(f"[searches] keyframe {kf} against neighbours {nbs}; card vs CPU", flush=True)
+    out = []
+    for dev in ("cuda", "cpu"):
+        store = DeviceKFStore(dev)
+        store.sync(m)
+        a = store.arrays
+        free2 = torch.as_tensor(m.kf_kp_valid[nbs]).to(dev)
+        t0 = time.perf_counter()
+        tri = triangulate_neighbors(
+            kf, torch.as_tensor(m.kf_kp_valid[kf]).to(dev), nbs, free2,
+            store.pose, a["kf_kp_xy"], a["kf_kp_desc"], a["kf_kp_octave"], a["kf_kp_angle"],
+            a["kf_kp_valid"], a["kf_kp_ur"], a["kf_kp_depth"], cam, orb_cfg.scale_factor,
+            orb_cfg.n_levels, m.cap.n_features * len(nbs))
+        tri = [x.cpu().numpy() for x in tri]
+        tri_s = time.perf_counter() - t0
+        cand = np.flatnonzero(m.pt_valid)[:4096]
+        ids = np.zeros(4096, np.int64)
+        ids[:len(cand)] = cand
+        targets = [kf, *nbs]
+        sel = np.zeros((len(targets), 4096), bool)
+        sel[:, :len(cand)] = True
+        mir = DeviceMapMirror(dev)
+        mir.sync(m)
+        t0 = time.perf_counter()
+        assoc = kernels.fuse_targets(
+            targets, store.pose, a["kf_kp_xy"], a["kf_kp_desc"],
+            a["kf_kp_octave"], a["kf_kp_angle"], a["kf_kp_valid"],
+            torch.as_tensor(ids).to(dev), torch.as_tensor(sel).to(dev),
+            *(mir.arrays[f] for f in DEVICE_MIRROR_FIELDS), 3.0, cam,
+            orb_cfg.scale_factor, orb_cfg.n_levels, 50).cpu().numpy()
+        out.append((tri, assoc, tri_s, time.perf_counter() - t0))
+    (tri_c, assoc_c, tri_cs, fuse_cs), (tri_u, assoc_u, tri_us, fuse_us) = out
+
+    def triples(t):
+        keep = t[1] >= 0
+        return {(int(a), int(b), int(c)) for a, b, c in zip(t[1][keep], t[0][keep], t[2][keep])}
+
+    tc, tu = triples(tri_c), triples(tri_u)
+    differ = len(tc ^ tu)
+    common = {(i, b): p for i, b, p in zip(tri_u[1], tri_u[0], tri_u[3]) if i >= 0}
+    diffs = [np.abs(p - common[(i, b)]).max() for i, b, p in zip(tri_c[1], tri_c[0], tri_c[3])
+             if i >= 0 and (i, b) in common]
+    point_diff = float(max(diffs)) if diffs else 0.0
+    agree = float((assoc_c == assoc_u).mean())
+    print(f"  triangulation: {len(tc)} survivors on the card, {len(tu)} on the CPU, "
+          f"{differ} differ; largest point difference {point_diff:.3e} m; fuse: "
+          f"{int((assoc_c >= 0).sum())} associations on the card, {int((assoc_u >= 0).sum())} "
+          f"on the CPU, {agree * 100:.3f} % of the {assoc_c.size} slots agree; host clock: "
+          f"triangulation card {tri_cs:.3f} s CPU {tri_us:.3f} s, fuse card {fuse_cs:.3f} s "
+          f"CPU {fuse_us:.3f} s", flush=True)
+    if not tc:
+        fail("triangulation found no survivor on the card")
+    if differ > max(3, 0.01 * len(tu)):
+        fail(f"triangulation: {differ} survivors differ between the card and the CPU")
+    if agree < 0.995:
+        fail(f"fuse: only {agree * 100:.2f} % of the associations agree")
+    return dict(tri_survivors_card=len(tc), tri_survivors_cpu=len(tu), tri_differ=differ,
+                tri_point_diff_m=point_diff, fuse_agree_share=agree,
+                tri_card_s=tri_cs, tri_cpu_s=tri_us, fuse_card_s=fuse_cs, fuse_cpu_s=fuse_us)
 
 
 def main() -> None:
@@ -406,23 +737,35 @@ def main() -> None:
     print(f"[render] {N_FRAMES} frames 640x480 on the host in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phases 3 and 4 ---------------------------------------------------
+    # ---- phases 3 to 8 ----------------------------------------------------
     kernel = check_kernel(orb.get_extractor(orb_cfg, (cam.height, cam.width)),
                           frames[0][0])
+    # bench.py's bench_system geometry; async_mapping (the worker) and
+    # vocabulary=None are the defaults
     cfg = SLAMConfig(cam=cam, orb=orb_cfg, th_depth=6.0, max_keyframes=64,
                      max_points=16384, local_point_cap=4096,
                      max_frames_between_kf=30, min_init_features=400,
-                     async_mapping=False, pipelined_fetch=False,
-                     profile_stages=True)
-    system = SLAMSystem(cfg, Sensor.RGBD)        # default device: the card
-    main_path = drive_main_path(system, frames, seq)
-    check_no_jax("after the drive")   # a lazy import on the main path shows here
+                     pipelined_fetch=False, profile_stages=True)
+    tracker_alone = drive_tracker_alone(cfg, frames, seq)
+    main_path, system, last_ba = drive_main_path(cfg, frames, seq)
+    ba_check = check_ba_card_vs_cpu(last_ba, cam)
+    search_check = check_mapping_searches(system, cam, orb_cfg)
+    dense = drive_keyframe_dense(cfg, frames, seq)
+    check_no_jax("after the drives")  # a lazy import on a drive shows here
 
     print(json.dumps({"kernels": [{
         "name": "fused_orient_describe", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/orient_describe.cu",
         "replaces": "orbslam2_tpu/ops/pallas_orb.py:196",
-        **kernel, **main_path}]}), flush=True)
+        **kernel, "launches": main_path["launches"],
+        "launches_per_frame": main_path["launches"] // N_FRAMES,
+        "launches_by_path": {"slam_system_with_mapping_worker": main_path["launches"],
+                             "tracker_without_mapper": tracker_alone["launches"],
+                             "keyframe_dense_mapped": dense["launches"]},
+        "main_path": main_path, "tracker_without_mapper": tracker_alone,
+        "keyframe_dense_mapped": dense,
+        "local_ba_card_vs_cpu": ba_check,
+        "mapping_searches_card_vs_cpu": search_check}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

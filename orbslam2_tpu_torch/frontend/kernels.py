@@ -1,10 +1,10 @@
 """Device-side steps of the tracking front-end.
 
 Counterpart of ``orbslam2_tpu/frontend/kernels.py`` (the parts RGB-D tracking
-needs). Each function is shape-static (fixed point/keypoint capacities,
-masked) and works on tensors of one device. Together they replace the scalar
-per-point loops of the reference's SearchLocalPoints, isInFrustum and the
-SearchByProjection family.
+and local mapping need). Each function is shape-static (fixed point/keypoint
+capacities, masked) and works on tensors of one device. Together they replace
+the scalar per-point loops of the reference's SearchLocalPoints,
+isInFrustum, the SearchByProjection family and Fuse.
 """
 from __future__ import annotations
 
@@ -186,6 +186,64 @@ def search_by_descriptor(
     won = (best_kp >= 0) & (assoc[best_kp.clamp(0, kp.n - 1)]
                             == torch.arange(q, device=best_kp.device))
     return torch.where(won, best_kp, -1), best_dist
+
+
+def keyframe_keypoints(row: int, kf_xy, kf_desc, kf_octave, kf_angle,
+                       kf_valid) -> Keypoints:
+    """Keypoints view of one keyframe row of the device keyframe store. The
+    fields are views of the store's rows: read, never written."""
+    n = kf_xy.shape[1]
+    dev = kf_xy.device
+    return Keypoints(
+        xy=kf_xy[row], response=torch.zeros(n, device=dev), angle=kf_angle[row],
+        octave=kf_octave[row], size=torch.ones(n, device=dev), desc=kf_desc[row],
+        valid=kf_valid[row])
+
+
+def fuse_targets(
+    target_ids,                    # [T] keyframe rows, host values
+    kf_pose_all: torch.Tensor,     # [K, 4, 4] device keyframe poses
+    kf_xy: torch.Tensor,           # [K, N, 2] device keyframe store
+    kf_desc: torch.Tensor,
+    kf_octave: torch.Tensor,
+    kf_angle: torch.Tensor,
+    kf_valid: torch.Tensor,
+    ids: torch.Tensor,             # [C] candidate point rows into the mirror
+    sel_valid: torch.Tensor,       # [T, C] per-target candidate mask (forward
+                                   # and backward fuse share one call: each
+                                   # target sees only its own candidate set)
+    pt_pos_all: torch.Tensor,
+    pt_desc_all: torch.Tensor,
+    pt_valid_all: torch.Tensor,
+    pt_normal_all: torch.Tensor,
+    pt_min_all: torch.Tensor,
+    pt_max_all: torch.Tensor,
+    radius_mult: float,
+    cam: PinholeCamera,
+    scale_factor: float = 1.2,
+    n_levels: int = 8,
+    max_hamming: int = 50,
+) -> torch.Tensor:
+    """ORBmatcher::Fuse against T keyframes (LocalMapping::SearchInNeighbors
+    projects the keyframe's points into ~20 neighbours). Candidate points and
+    keyframe features are gathered on the device from the resident mirror and
+    store. -> assoc [T, N] int32: keypoint -> candidate row, -1 = none.
+
+    The targets run one after the other: each materialises a [C, N] distance
+    matrix (33 MB at C = 4096, N = 2000), so all T at once would hold close
+    to 1 GB to save launches on the mapping thread."""
+    n = kf_xy.shape[1]
+    ids = ids.long()
+    out = torch.full((len(target_ids), n), -1, dtype=torch.int32, device=kf_xy.device)
+    no_prior = torch.zeros(n, dtype=torch.bool, device=kf_xy.device)
+    for i, t in enumerate(target_ids):
+        kp = keyframe_keypoints(t, kf_xy, kf_desc, kf_octave, kf_angle, kf_valid)
+        _, res = search_local_points_gathered(
+            kf_pose_all[t], ids, sel_valid[i], pt_pos_all, pt_desc_all,
+            pt_valid_all, pt_normal_all, pt_min_all, pt_max_all,
+            kp, no_prior, radius_mult, cam, scale_factor, n_levels, max_hamming)
+        out[i] = res.assoc.to(torch.int32)
+    return out
 
 
 class TrackStepResult(NamedTuple):

@@ -8,19 +8,27 @@ a flat array store (slammap/mapstate.py).
 
 What this port covers so far: RGB-D initialization from depth, the classic
 two-step path, the synchronous fused whole-frame path, keyframe insertion
-with close points spawned from depth, vocabulary-free relocalization through
-the reference keyframe, reset and trajectory bookkeeping. It runs without a
-local mapper, mapping worker or vocabulary: keyframes are inserted and the
-map is not refined. Stereo, monocular, localization mode, the pipelined and
-batched fetch and the host-staged local map are rejected with
-NotImplementedError (see ROADMAP.md, Queue 1). There are no worker threads
-yet, hence no map lock and no mid-flight revalidation of associations; both
-return with the mapping worker.
+with close points spawned from depth, local mapping of every keyframe
+(inline, or on the mapping worker's thread), vocabulary-free relocalization
+through the reference keyframe, reset and trajectory bookkeeping.
+
+The tracker owns the map lock (a re-entrant lock shared with the local
+mapper). A classic-path frame holds it throughout; a fused frame holds it
+while it stages its inputs and while it applies its results, and runs its
+device step unlocked, so that mapping stages interleave. Associations staged
+before a mid-flight map change are validated on apply: erased or re-used
+point slots are dropped, and a frame staged before a pose correction is
+dispatched again.
+
+Stereo, monocular, localization mode, loop closing and vocabulary
+relocalization, the pipelined and batched fetch and the host-staged local
+map are rejected with NotImplementedError (see ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import threading
 from types import SimpleNamespace
 from typing import Optional
 
@@ -90,8 +98,6 @@ def check_supported(config: SLAMConfig) -> None:
     pending = []
     if config.localization_only:
         pending.append("localization_only=True (localization mode + VO points)")
-    if config.async_mapping:
-        pending.append("async_mapping=True (local mapping + MappingWorker)")
     if config.pipelined_fetch:
         pending.append("pipelined_fetch=True (pipelined/batched fetch)")
     if config.fetch_batch > 1:
@@ -137,9 +143,6 @@ class Tracker:
     def __init__(self, config: SLAMConfig, map_state: Optional[MapState] = None,
                  local_mapper=None, device="cuda"):
         check_supported(config)
-        if local_mapper is not None:
-            raise NotImplementedError(
-                "local mapping is not ported yet (ROADMAP.md, Queue 1)")
         self.cfg = config
         self.cam = config.cam
         self.device = resolve_device(device)
@@ -147,6 +150,7 @@ class Tracker:
             config.orb, (config.cam.height, config.cam.width), self.device)
         self.map = map_state or MapState(MapCapacity(
             config.max_keyframes, config.max_points, self.extractor.n_total))
+        self.local_mapper = local_mapper  # set by SLAMSystem; maps each new KF
         self.state = TrackingState.NO_IMAGES_YET
         self.last_frame: Optional[frame_mod.Frame] = None
         self.velocity: Optional[np.ndarray] = None   # Tcl: last->current
@@ -167,7 +171,14 @@ class Tracker:
         self._selection_fresh = False  # set when a classic-path frame just
         # computed the selection (skip the end-of-frame recompute)
         self._last_pid_dev: Optional[torch.Tensor] = None  # device [N]
+        # the map lock (shared with the local mapper) and the mapping worker
+        # (set by SLAMSystem when async_mapping is on)
+        self.map_lock = threading.RLock()
+        self.mapping_worker = None
         self.stats = StageTimer(enabled=config.profile_stages)
+        # fused frames that dropped associations to points the mapper erased
+        # or re-allocated while the frame's device step ran (read by drives)
+        self.revalidated_frames = 0
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         """Host array -> tensor on the tracker's device."""
@@ -200,14 +211,20 @@ class Tracker:
     # ------------------------------------------------------------------
     def _track_images(self, kind: str, imgs, timestamp: float
                       ) -> Optional[np.ndarray]:
-        fused = (self.cfg.fused_frame and self.state == TrackingState.OK
-                 and self.velocity is not None
-                 and self._local_ids is not None)
+        # The fused steady-state path manages its own lock scope: staging
+        # and applying run under the map lock, the device step runs unlocked
+        # so that mapping stages interleave with it. The classic path (init,
+        # reloc, motion-model fallback) holds the lock for the whole frame,
+        # like the reference's Track().
+        with self.map_lock:
+            fused = (self.cfg.fused_frame and self.state == TrackingState.OK
+                     and self.velocity is not None
+                     and self._local_ids is not None)
         if fused:
             return self._track_fused(kind, imgs, timestamp)
-        # classic path (init, reloc, motion-model fallback)
-        fr = self._build_frame(kind, imgs, timestamp)
-        return self._track_locked(fr)
+        with self.map_lock:
+            fr = self._build_frame(kind, imgs, timestamp)
+            return self._track_locked(fr)
 
     def _track_locked(self, fr: frame_mod.Frame) -> Optional[np.ndarray]:
         # any classic-path frame invalidates the fused device carry (its
@@ -308,33 +325,61 @@ class Tracker:
             rec = self._fused_dispatch(kind, imgs_d, timestamp)
             with self.stats.stage("fused_dev"):
                 fetched = self._fused_fetch(rec["out"])
-            return self._fused_apply(rec, fetched)
+            return self._apply_one(rec, fetched)
 
-    def _fused_dispatch(self, kind: str, imgs_d, timestamp: float) -> dict:
-        """Stage the inputs from the host state and run the fused step.
-        Returns the record consumed by _fused_fetch/_fused_apply."""
-        self._update_last_frame()
-        last = self.last_frame
-        tcw_pred = (np.asarray(self.velocity, np.float32)
-                    @ np.asarray(last.tcw, np.float32))
-        last_pid = self._last_pid_dev
-        if last_pid is None:
-            last_pid = self._dev(last.pt_ids)
-        mir = self.map.device_mirror(self.device)
-        frame_id = self.frame_counter
-        self.frame_counter += 1
-        radius_mult = 3.0 \
-            if frame_id - self.last_reloc_frame_id < 2 else 1.0
+    def _fused_dispatch(self, kind: str, imgs_d, timestamp: float,
+                        frame_id: Optional[int] = None) -> dict:
+        """Stage a consistent snapshot under the map lock, then run the fused
+        step unlocked. Returns the record consumed by _fused_fetch and
+        _apply_one. `frame_id` is given when a frame is dispatched again."""
+        with self.map_lock:
+            self._update_last_frame()
+            last = self.last_frame
+            tcw_pred = (np.asarray(self.velocity, np.float32)
+                        @ np.asarray(last.tcw, np.float32))
+            last_pid = self._last_pid_dev
+            if last_pid is None:
+                last_pid = self._dev(last.pt_ids)
+            # the mirror's tensors are a snapshot: a sync replaces them
+            mir = self.map.device_mirror(self.device)
+            corr_gen = self.map.correction_gen
+            stamp_snap = self.map._pt_counter
+            if frame_id is None:
+                frame_id = self.frame_counter
+                self.frame_counter += 1
+            radius_mult = 3.0 \
+                if frame_id - self.last_reloc_frame_id < 2 else 1.0
+            local_ids = self._dev(self._local_ids)
+            local_sel = self._dev(self._local_sel)
+            local_pts = self._local_pts
         out = kernels.fused_frame_step(
             (kind, imgs_d), self.extractor, self.cam,
             self.cfg.orb.scale_factor, self.cfg.orb.n_levels,
-            self._dev(tcw_pred), last.kp, last_pid,
-            self._dev(self._local_ids), self._dev(self._local_sel),
+            self._dev(tcw_pred), last.kp, last_pid, local_ids, local_sel,
             radius_mult,
             mir.pt_pos, mir.pt_desc, mir.pt_valid, mir.pt_normal,
             mir.pt_min_dist, mir.pt_max_dist)
-        return dict(out=out, timestamp=timestamp, frame_id=frame_id,
-                    local_pts=self._local_pts)
+        return dict(out=out, kind=kind, imgs_d=imgs_d, timestamp=timestamp,
+                    frame_id=frame_id, corr_gen=corr_gen,
+                    stamp_snap=stamp_snap, local_pts=local_pts)
+
+    def _apply_one(self, rec: dict, fetched) -> Optional[np.ndarray]:
+        """Apply one fetched frame. A pose correction that rebased the map
+        while the step was in flight (map.correction_gen moved) voids the
+        solved pose: the frame is dispatched again against the corrected
+        state; after two corrections in a row it takes the classic path."""
+        for _attempt in range(2):
+            with self.map_lock:
+                if self.map.correction_gen == rec["corr_gen"]:
+                    return self._fused_apply(rec, fetched)
+                self._last_pid_dev = None
+            rec = self._fused_dispatch(rec["kind"], rec["imgs_d"],
+                                       rec["timestamp"], frame_id=rec["frame_id"])
+            with self.stats.stage("fused_dev"):
+                fetched = self._fused_fetch(rec["out"])
+        with self.map_lock:
+            fr = self._build_frame(rec["kind"], rec["imgs_d"], rec["timestamp"])
+            return self._track_locked(fr)
 
     @staticmethod
     def _fused_fetch(out: kernels.FusedFrameOut):
@@ -354,11 +399,17 @@ class Tracker:
                 floats[16:16 + n], floats[16 + n:])
 
     def _fused_apply(self, rec: dict, fetched) -> Optional[np.ndarray]:
-        """Host bookkeeping for a fused frame step."""
+        """Host bookkeeping for a fused frame step (map lock held).
+        Associations staged before a mid-flight mapping change are validated
+        again: erased or re-allocated point slots (pt_stamp >= the staging
+        snapshot) are dropped, as the reference tracker's per-use isBad()
+        checks drop them."""
         (tcw_h, pid_h, outl_h, vis_h, mm_m, mm_in, n_in, depth_h,
          ur_h) = fetched
         out = rec["out"]
         frame_id = rec["frame_id"]
+        stamp_snap = rec["stamp_snap"]
+        self._update_last_frame()
         fr = frame_mod.Frame(
             frame_id=frame_id, timestamp=rec["timestamp"], kp=out.kp,
             ur=out.ur, depth=out.depth,
@@ -379,17 +430,27 @@ class Tracker:
             return self._finish_frame(fr, ok)
 
         m = self.map
-        fr.pt_ids = np.asarray(pid_h, np.int32).copy()
+        pid = np.asarray(pid_h, np.int32).copy()
+        has = pid >= 0
+        safe = np.clip(pid, 0, m.cap.max_points - 1)
+        stale = has & (~m.pt_valid[safe] | (m.pt_stamp[safe] >= stamp_snap))
+        pid[stale] = -1
+        self.revalidated_frames += bool(stale.any())
+        fr.pt_ids = pid
         fr.is_outlier = np.asarray(outl_h).copy()
+        fr.is_outlier[stale] = False
         self.matches_inliers = n_in
         self._map_inliers = int((fr.pt_ids >= 0).sum())
         min_inliers = 30 if frame_id - self.last_reloc_frame_id > 30 else 50
         ok = n_in >= min_inliers
         if ok:
             lp = rec["local_pts"]
-            m.increase_visible(lp[vis_h[: len(lp)]])
+            vis_ids = lp[vis_h[: len(lp)]]
+            vis_ids = vis_ids[m.pt_valid[vis_ids] & (m.pt_stamp[vis_ids] < stamp_snap)]
+            m.increase_visible(vis_ids)
             m.increase_found(fr.pt_ids[fr.pt_ids >= 0])
-            self._last_pid_dev = out.pt_ids  # device carry, next frame
+            # the device carry holds the stale ids too
+            self._last_pid_dev = None if stale.any() else out.pt_ids
         else:
             self._last_pid_dev = None
         return self._finish_frame(fr, ok)
@@ -494,6 +555,8 @@ class Tracker:
         bookkeeping survives for export (entries referencing cleared
         keyframes resolve to their last pose)."""
         self.map.clear()
+        if self.local_mapper is not None:
+            self.local_mapper._recent.clear()
         self.state = TrackingState.NOT_INITIALIZED
         self.velocity = None
         self.ref_kf = -1
@@ -596,14 +659,19 @@ class Tracker:
         return self._apply_pose_result(fr, step, min_inliers)
 
     # ------------------------------------------------------------------
-    # keyframe decision (Tracking::NeedNewKeyFrame); without a mapping
-    # worker mapping is always "idle"
+    # keyframe decision (Tracking::NeedNewKeyFrame)
     # ------------------------------------------------------------------
     def _need_new_keyframe(self, fr: frame_mod.Frame) -> bool:
         n_kfs = self.map.n_keyframes()
         if n_kfs >= self.cfg.max_keyframes - 2:
             return False
+        # bLocalMappingIdle: the worker has drained its queue and finished;
+        # without a worker mapping runs inline and is always idle
+        mapping_idle = self.mapping_worker is None or self.mapping_worker.idle()
         if self.cfg.force_kf_every is not None:
+            if self.mapping_worker is not None \
+                    and not self.mapping_worker.accept_keyframes():
+                return False
             return (fr.frame_id - self.last_kf_frame_id >= self.cfg.force_kf_every
                     and self.matches_inliers > 15)
         # reference tracked-point count in the reference keyframe
@@ -622,12 +690,19 @@ class Tracker:
         frames_since_kf = fr.frame_id - self.last_kf_frame_id
         # conditions exactly as the reference's c1a/c1b/c1c/c2
         c1a = frames_since_kf >= self.cfg.max_frames_between_kf
-        c1b = frames_since_kf >= self.cfg.min_frames_between_kf  # mapping idle
+        c1b = frames_since_kf >= self.cfg.min_frames_between_kf and mapping_idle
         c1c = self.matches_inliers < ref_tracked * 0.25 or need_close
         th_ref = 0.75 if n_kfs >= 2 else 0.4
         c2 = (self.matches_inliers < ref_tracked * th_ref or need_close) \
             and self.matches_inliers > 15
-        return bool((c1a or c1b or c1c) and c2)
+        if not ((c1a or c1b or c1c) and c2):
+            return False
+        if mapping_idle:
+            return True
+        # mapping busy: signal the BA abort; RGB-D may queue up to 3 keyframes
+        if self.local_mapper is not None:
+            self.local_mapper.interrupt_ba = True
+        return self.mapping_worker.queue_size() < 3
 
     # ------------------------------------------------------------------
     # keyframe creation (Tracking::CreateNewKeyFrame)
@@ -673,6 +748,13 @@ class Tracker:
         with self.stats.stage("kf_covis"):
             self._covis_w = covisibility.weight_matrix(self.map)
             covisibility.assign_spanning_parent(self.map, self._covis_w, kf)
+        if self.mapping_worker is not None:
+            # hand the keyframe to the background worker
+            with self.stats.stage("kf_handoff"):
+                self.mapping_worker.insert_keyframe(kf)
+        elif self.local_mapper is not None:
+            self.local_mapper.process_keyframe(kf)
+            self._covis_w = covisibility.weight_matrix(self.map)
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, fr: frame_mod.Frame) -> int:
@@ -703,11 +785,20 @@ class Tracker:
             tcr=tcr.astype(np.float32), ref_kf=self.ref_kf, ref_order=ref_order,
             timestamp=fr.timestamp, lost=lost))
 
-    def full_trajectory_twc(self) -> np.ndarray:
+    def full_trajectory_twc(self, wait: bool = True) -> np.ndarray:
         """Recover all frame poses through their reference keyframes,
         chaining through culled keyframes via stored relative poses (one
         pose per frame, lost frames carried forward). For TUM export, which
-        skips lost frames, pair with `trajectory_lost_mask`."""
+        skips lost frames, pair with `trajectory_lost_mask`.
+
+        Waits for the mapping worker to drain first and reads under the map
+        lock; `wait=False` gives a snapshot without waiting."""
+        if wait and self.mapping_worker is not None:
+            self.mapping_worker.wait_idle()
+        with self.map_lock:
+            return self._full_trajectory_twc_locked()
+
+    def _full_trajectory_twc_locked(self) -> np.ndarray:
         out = []
         last = np.eye(4, dtype=np.float32)
         for e in self.trajectory:

@@ -23,9 +23,14 @@ LOCAL_MAP_MAX_KF = 80
 
 
 def weight_matrix(m) -> np.ndarray:
-    """[K, K] int32 covisibility weights (shared map points), zero diagonal."""
-    inc = m.incidence()
-    w = (inc.astype(np.int32) @ inc.astype(np.int32).T)
+    """[K, K] int32 covisibility weights (shared map points), zero diagonal.
+
+    The product is taken in float32, where numpy calls BLAS; numpy's
+    integer product has no BLAS path and is many times slower at map scale
+    (64 keyframes x 16384 points). It is exact: a weight counts points shared
+    with one keyframe, at most its feature count, far below 2**24."""
+    inc = m.incidence().astype(np.float32)
+    w = (inc @ inc.T).astype(np.int32)
     np.fill_diagonal(w, 0)
     return w
 

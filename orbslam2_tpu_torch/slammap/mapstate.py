@@ -116,6 +116,7 @@ class MapState:
         self._kf_dirty: set = set()
         self._kf_dirty_all = True
         self._device_mirror = None
+        self._device_kf_store = None
 
     # ------------------------------------------------------------------
     # allocation
@@ -461,7 +462,8 @@ class MapState:
         return None
 
     # ------------------------------------------------------------------
-    # device-resident mirror of the point arrays
+    # device-resident mirrors (shared by the tracker and the local mapper;
+    # callers hold the map lock)
     # ------------------------------------------------------------------
     def device_mirror(self, device):
         """Synced point mirror on `device` (slammap/device_map)."""
@@ -471,6 +473,15 @@ class MapState:
             mir = self._device_mirror = DeviceMapMirror(device)
         mir.sync(self)
         return mir
+
+    def device_kf_store(self, device):
+        """Synced keyframe store on `device` (slammap/device_map)."""
+        from orbslam2_tpu_torch.slammap.device_map import DeviceKFStore
+        store = self._device_kf_store
+        if store is None or store.device != torch.device(device):
+            store = self._device_kf_store = DeviceKFStore(device)
+        store.sync(self)
+        return store
 
     # ------------------------------------------------------------------
     # derived quantities

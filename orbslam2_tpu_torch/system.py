@@ -1,13 +1,14 @@
 """System facade: the public entry point of the port.
 
 Counterpart of ``orbslam2_tpu/system.py`` (the reference's
-ORB_SLAM2::System): constructs the map and the tracker and exposes the
+ORB_SLAM2::System): constructs the map, the tracker and the local mapper,
+starts the mapping worker (``async_mapping``, the default) and exposes the
 RGB-D track call, reset, shutdown, map save/load and the trajectory savers.
 
-This slice tracks and inserts keyframes but does not yet refine the map:
-local mapping, the mapping worker, loop closing and vocabulary-based
-relocalization, stereo, monocular and localization mode are not ported yet.
-A request for any of them raises NotImplementedError naming the ROADMAP
+Every keyframe is mapped (triangulation, fusion, local BA, culling), on the
+worker's thread or inline at insertion. Loop closing and vocabulary-based
+relocalization, stereo, monocular and localization mode are not ported yet:
+a request for any of them raises NotImplementedError naming the ROADMAP
 item; nothing is ignored silently.
 """
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import Optional
 
 import numpy as np
 
+from orbslam2_tpu_torch.frontend.local_mapping import LocalMapper, LocalMapperConfig
+from orbslam2_tpu_torch.frontend.orchestrator import MappingWorker
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
 from orbslam2_tpu_torch.io import trajectory as traj_io
 from orbslam2_tpu_torch.slammap.mapstate import MapState
@@ -35,9 +38,9 @@ def _not_ported(what: str) -> NotImplementedError:
 class SLAMSystem:
     def __init__(self, config: SLAMConfig, sensor: Sensor, vocabulary=None,
                  device="cuda"):
-        """`device`: where the per-frame work runs; "cuda" unless the caller
-        asks for "cpu". `vocabulary` must be None until place recognition is
-        ported."""
+        """`device`: where the per-frame work and the mapping run; "cuda"
+        unless the caller asks for "cpu". `vocabulary` must be None until
+        place recognition is ported."""
         if sensor != Sensor.RGBD:
             raise _not_ported(f"sensor {sensor.name}")
         if vocabulary is not None:
@@ -45,10 +48,23 @@ class SLAMSystem:
                               "relocalization)")
         self.cfg = config
         self.sensor = sensor
-        # the tracker rejects unported config values and owns the map
+        # the tracker rejects unported config values and owns the map and
+        # the map lock, which the local mapper shares
         self.tracker = Tracker(config, device=device)
         self.map = self.tracker.map
         self.device = self.tracker.device
+        self.local_mapper = LocalMapper(
+            self.map, config.cam,
+            LocalMapperConfig(scale_factor=config.orb.scale_factor,
+                              n_levels=config.orb.n_levels),
+            device=self.device)
+        self.local_mapper.stats.enabled = config.profile_stages
+        self.local_mapper.map_lock = self.tracker.map_lock
+        self.tracker.local_mapper = self.local_mapper
+        self.mapping_worker = None
+        if config.async_mapping:
+            self.mapping_worker = MappingWorker(self.local_mapper)
+            self.tracker.mapping_worker = self.mapping_worker
 
     # ------------------------------------------------------------------
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float
@@ -68,10 +84,25 @@ class SLAMSystem:
 
     def reset(self) -> None:
         """System::Reset."""
-        self.tracker.reset()
+        self.wait_mapping_idle()
+        with self.tracker.map_lock:
+            self.tracker.reset()
 
     def shutdown(self) -> None:
-        """System::Shutdown. This slice owns no threads: nothing to join."""
+        """System::Shutdown: map what is queued, then join the mapping
+        worker. Idempotent; raises the worker's first exception, once."""
+        worker, self.mapping_worker = self.mapping_worker, None
+        if worker is not None:
+            self.tracker.mapping_worker = None
+            worker.stop()
+
+    def wait_mapping_idle(self, timeout: float = 60.0) -> bool:
+        """Block until background mapping has drained (before reading the
+        trajectory or saving the map). -> False on timeout; raises the
+        worker's exception if a mapping stage failed."""
+        if self.mapping_worker is None:
+            return True
+        return self.mapping_worker.wait_idle(timeout)
 
     # ------------------------------------------------------------------
     def tracking_state(self) -> TrackingState:
@@ -96,13 +127,17 @@ class SLAMSystem:
 
     def save_map(self, path: str) -> None:
         """Persist the full map as one compressed npz."""
-        self.map.save(path)
+        self.wait_mapping_idle()
+        with self.tracker.map_lock:
+            self.map.save(path)
 
     def load_map(self, path: str) -> None:
         """Load a saved map; the tracker then relocalizes against it."""
         loaded = MapState.load(path)
-        # copy arrays into the existing shared MapState instance
-        self.map.__dict__.update(loaded.__dict__)
+        self.wait_mapping_idle()
+        with self.tracker.map_lock:
+            # copy arrays into the existing shared MapState instance
+            self.map.__dict__.update(loaded.__dict__)
         self.tracker.state = TrackingState.LOST if self.map.n_keyframes() \
             else TrackingState.NO_IMAGES_YET
 

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of orbslam2_tpu_torch, and
-chip_smoke.py, pulls in neither jax nor the JAX package; its entry points
+chip_smoke.py, pulls in neither jax nor the JAX package, and neither does a
+drive whose keyframes the mapping worker's thread maps; its entry points
 refuse to run without a GPU unless the caller asks for the CPU."""
 import os
 import pkgutil
@@ -26,6 +27,26 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 mod = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(mod)          # defines main(), runs nothing
+
+# a short drive whose keyframes the mapping worker's thread maps
+import torch
+from orbslam2_tpu_torch.frontend.tracking import SLAMConfig
+from orbslam2_tpu_torch.geometry.camera import PinholeCamera
+from orbslam2_tpu_torch.io.synthetic import SyntheticSequence
+from orbslam2_tpu_torch.ops.orb import ORBConfig
+from orbslam2_tpu_torch.system import SLAMSystem, Sensor
+torch.set_num_threads(1)
+cam = PinholeCamera(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
+cfg = SLAMConfig(cam=cam, orb=ORBConfig(n_features=400, n_levels=4), th_depth=4.0,
+                 max_keyframes=8, max_points=2048, local_point_cap=1024,
+                 min_init_features=200, force_kf_every=2, pipelined_fetch=False)
+system = SLAMSystem(cfg, Sensor.RGBD, device="cpu")
+seq = SyntheticSequence(cam, n_frames=5, trajectory="lateral", seed=1)
+for i in range(5):
+    system.track_rgbd(*seq.render(i), i / 30.0)
+system.shutdown()
+print("KEYFRAMES", system.map.n_keyframes(), "MAPPED", system.local_mapper.counts)
+
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "orbslam2_tpu" or m.startswith("orbslam2_tpu."))
@@ -40,18 +61,22 @@ def test_every_module_is_listed():
             "backend.pose_opt", "frontend.frame", "frontend.kernels",
             "frontend.tracking", "slammap.mapstate", "slammap.device_map",
             "slammap.covisibility", "slammap.point_stats", "io.synthetic",
-            "io.evaluate", "io.trajectory", "utils.profiling"}
+            "io.evaluate", "io.trajectory", "utils.profiling",
+            "geometry.triangulate", "frontend.triangulation", "backend.ba",
+            "frontend.local_mapping", "frontend.orchestrator"}
     have = {m[len("orbslam2_tpu_torch."):] for m in MODULES} | {"__init__"}
     assert want <= have, want - have
 
 
 def test_port_and_chip_smoke_import_without_jax():
+    """Every module, chip_smoke.py and a drive with the mapping worker."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE, "orbslam2_tpu_torch", *MODULES],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert f"IMPORTED {len(MODULES) + 1} BAD []" in proc.stdout
+    assert "KEYFRAMES 3" in proc.stdout, proc.stdout
 
 
 def test_sources_do_not_name_jax_imports():

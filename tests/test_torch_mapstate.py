@@ -13,7 +13,7 @@ from orbslam2_tpu_torch import convert
 from orbslam2_tpu_torch.slammap import covisibility as tcov
 from orbslam2_tpu_torch.slammap import mapstate as tms
 from orbslam2_tpu_torch.slammap import point_stats as tstats
-from orbslam2_tpu_torch.slammap.device_map import DeviceMapMirror
+from orbslam2_tpu_torch.slammap.device_map import DeviceKFStore, DeviceMapMirror
 
 import torch_port_helpers  # noqa: F401  (caps torch's intra-op threads)
 
@@ -204,6 +204,22 @@ class TestCovisibility:
         assert w[kfs[0], kfs[0]] == 0
         np.testing.assert_array_equal(w, jcov.weight_matrix(mj))
 
+    def test_weight_matrix_on_a_seeded_map(self):
+        """The float32 product equals the JAX package's integer weights bit
+        for bit on a map with random observations."""
+        (m, kfs, pts), (mj, _, _) = both()
+        rng = np.random.default_rng(3)
+        for k in kfs:
+            slots = rng.choice(64, 40, replace=False)
+            pids = rng.choice(len(pts), 40, replace=False)
+            for mm in (m, mj):
+                mm.kf_pt[k, slots] = np.array(pts)[pids]
+                mm.touch_obs()
+        m.erase_point(pts[7]), mj.erase_point(pts[7])
+        w = tcov.weight_matrix(m)
+        assert w.dtype == np.int32 and w.max() > 15
+        np.testing.assert_array_equal(w, jcov.weight_matrix(mj))
+
     def test_covisible_neighbors_threshold(self):
         m, kfs, pts = make_map(tms)
         observe(m, kfs, pts)
@@ -280,6 +296,21 @@ class TestDeviceMapMirror:
         assert mir.n_full_uploads == 2
         np.testing.assert_allclose(mir.pt_pos.numpy(), m.pt_pos)
 
+    def test_sync_replaces_and_never_rewrites(self):
+        """Tensors taken before a sync stay as they were (a thread that took
+        them under the map lock keeps a snapshot), on the CPU as well."""
+        m, kfs, pts = make_map(tms)
+        mir = m.device_mirror("cpu")
+        before = mir.pt_pos
+        kept = before.clone()
+        m.pt_pos[pts[3]] = [9, 9, 9]
+        m.mark_pts_dirty([pts[3]])
+        m.pt_pos[pts[4]] = [7, 7, 7]      # host write without a sync
+        m.device_mirror("cpu")
+        assert torch.equal(before, kept) and mir.pt_pos is not before
+        np.testing.assert_allclose(mir.pt_pos.numpy()[pts[3]], [9, 9, 9])
+        assert not np.allclose(mir.pt_pos.numpy()[pts[4]], [7, 7, 7])
+
     def test_mirror_survives_map_clear(self):
         m, kfs, pts = make_map(tms)
         mir = m.device_mirror("cpu")
@@ -290,3 +321,40 @@ class TestDeviceMapMirror:
         assert not m.device_mirror("cpu").pt_valid.any()
         with pytest.raises(AttributeError):
             mir.no_such_field
+
+
+class TestDeviceKFStore:
+    def test_matches_jax_store_and_uploads_rows_once(self):
+        (m, kfs, _), (mj, _, _) = both()
+        store = m.device_kf_store("cpu")
+        jstore = mj.device_kf_store()
+        assert m.device_kf_store("cpu") is store
+        for f, a in store.arrays.items():
+            want = np.asarray(jstore.arrays[f])
+            got = convert.desc_to_numpy(a) if f == "kf_kp_desc" else a.numpy()
+            np.testing.assert_array_equal(got, want, err_msg=f)
+        np.testing.assert_array_equal(store.pose.numpy(), np.asarray(jstore.pose))
+        assert store.arrays["kf_kp_desc"].dtype == torch.int32
+        # a new keyframe: one row upload; a pose change: fresh poses only
+        held = store.arrays["kf_kp_xy"]
+        rng = np.random.default_rng(1)
+        for mm in (m, mj):
+            k = mm.add_keyframe(
+                pose=np.eye(4, dtype=np.float32), timestamp=9.0, frame_id=9,
+                kp_xy=np.full((64, 2), 5.0, np.float32),
+                kp_octave=np.ones(64, np.int32), kp_angle=np.zeros(64, np.float32),
+                kp_response=np.ones(64, np.float32),
+                kp_desc=rng.integers(0, 2**32, (64, 8), dtype=np.uint32),
+                kp_valid=np.ones(64, bool), kp_ur=np.full(64, -1, np.float32),
+                kp_depth=np.full(64, 2.0, np.float32))
+            mm.kf_pose[kfs[1], :3, 3] = [1.0, 2.0, 3.0]
+        m.device_kf_store("cpu")
+        jstore = mj.device_kf_store()
+        assert store.n_row_uploads == 1 and store.arrays["kf_kp_xy"] is not held
+        assert (held[k] == 0).all()           # the snapshot kept its rows
+        np.testing.assert_array_equal(store.arrays["kf_kp_xy"].numpy(),
+                                      np.asarray(jstore.arrays["kf_kp_xy"]))
+        np.testing.assert_array_equal(store.pose.numpy()[kfs[1], :3, 3], [1, 2, 3])
+        store.sync(m)
+        assert store.n_row_uploads == 1       # nothing dirty: no upload
+        assert DeviceKFStore("cpu").device.type == "cpu"

@@ -3,10 +3,10 @@ the JAX package's Tracker, on the CPU.
 
 Each sequence (320x240, 800 features, 4 levels, 25 frames, as
 tests/test_e2e_rgbd.py) is rendered once with the JAX package's renderer and
-the identical arrays go to both trackers. The JAX Tracker is built standalone
-(no local mapper, no vocabulary, synchronous fetch): the state the port's
-tracker runs in. One tracker of each package serves both sequences, with a
-reset between them, so the reset path is part of what is compared.
+the identical arrays go to both systems. Both are SLAMSystems with local
+mapping run inline at each keyframe (async_mapping=False), no vocabulary and
+a synchronous fetch. One system of each package serves both sequences, with
+a reset between them, so the reset path is part of what is compared.
 
 Tolerances: float32 noise in a pose moves a handful of associations at window
 and chi-square edges, and the keyframe decision compares inlier counts with
@@ -21,6 +21,7 @@ from orbslam2_tpu.geometry.camera import PinholeCamera as JCamera
 from orbslam2_tpu.io.evaluate import ate_rmse as jate
 from orbslam2_tpu.io.synthetic import SyntheticSequence
 from orbslam2_tpu.ops.orb import ORBConfig as JORBConfig
+from orbslam2_tpu.system import SLAMSystem as JSystem, Sensor as JSensor
 from orbslam2_tpu_torch.frontend import tracking as ttracking
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera as TCamera
 from orbslam2_tpu_torch.io import evaluate as tevaluate
@@ -45,8 +46,9 @@ def _drive(track, frames):
 @pytest.fixture(scope="module")
 def runs():
     jcam, tcam = JCamera(**CAM_KW), TCamera(**CAM_KW)
-    jtr = jtracking.Tracker(jtracking.SLAMConfig(
-        cam=jcam, orb=JORBConfig(n_features=800, n_levels=4), **CFG_KW))
+    jsystem = JSystem(jtracking.SLAMConfig(
+        cam=jcam, orb=JORBConfig(n_features=800, n_levels=4), **CFG_KW), JSensor.RGBD)
+    jtr = jsystem.tracker
     system = SLAMSystem(ttracking.SLAMConfig(
         cam=tcam, orb=TORBConfig(n_features=800, n_levels=4), **CFG_KW),
         Sensor.RGBD, device="cpu")
@@ -55,7 +57,7 @@ def runs():
         seq = SyntheticSequence(jcam, n_frames=N_FRAMES, trajectory=name, seed=1)
         frames = [seq.render(i) for i in range(N_FRAMES)]
         if k:
-            jtr.reset()
+            jsystem.reset()
             system.reset()
             assert system.map.n_keyframes() == 0
             assert system.tracking_state() == ttracking.TrackingState.NOT_INITIALIZED
@@ -68,7 +70,8 @@ def runs():
             est_j=jtr.full_trajectory_twc()[sl], est_t=system.tracker.full_trajectory_twc()[sl],
             lost_j=jtr.trajectory_lost_mask()[sl], lost_t=system.tracker.trajectory_lost_mask()[sl],
             kf_j=jtr.map.n_keyframes(), kf_t=system.map.n_keyframes(),
-            pts_j=jtr.map.n_points(), pts_t=system.map.n_points())
+            pts_j=jtr.map.n_points(), pts_t=system.map.n_points(),
+            mapped=system.local_mapper.counts.copy())
     return out
 
 
@@ -85,6 +88,9 @@ def test_no_frame_is_lost_in_either(runs, name):
 def test_same_keyframes_and_map_size(runs, name):
     r = runs[name]
     assert r["kf_t"] >= 1 and abs(r["kf_t"] - r["kf_j"]) <= 1
+    if r["kf_t"] >= 2:   # a keyframe after the first was mapped
+        done = r["mapped"]
+        assert done["points_created"] + done["obs_fused"] + done["points_merged"] > 0, done
     if r["kf_t"] == r["kf_j"]:
         assert abs(r["pts_t"] - r["pts_j"]) <= 0.02 * r["pts_j"]
 
@@ -144,7 +150,7 @@ def test_system_accessors_and_map_roundtrip(runs, tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,word", [
-    (dict(async_mapping=True), "MappingWorker"),
+    (dict(mono_async_mapping=True), "mono"),
     (dict(pipelined_fetch=True), "pipelined"),
     (dict(fetch_batch=4), "fetch_batch"),
     (dict(localization_only=True), "localization"),
