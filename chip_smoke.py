@@ -47,6 +47,27 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             triangulation has free keypoints to pair, frames back to back as
             in phase 5: its counts, and a failure unless points were
             triangulated
+9. place    place recognition at full width: 100 frames of the panorama
+            (a 430-degree turn in the room world, 640x480 / 2000 / 8)
+            through SLAMSystem.track_rgbd with the 10 000-word vocabulary,
+            the mapping worker, a keyframe every fourth frame and loop
+            consistency 2, paced as the verify recipe paces it (a frame
+            waits while two keyframes are queued); fails unless every frame
+            is tracked, a loop is closed, a global BA is applied and the ATE
+            is under 0.15 m; prints the loop-closing stage times, the GBA's
+            and the longest tracker frame around the loop (the loop closer
+            holds the map lock while it corrects). A full-width drive that closes no loop says so and the
+            phase runs again at the verify geometry (320x240 / 800 / 4)
+10. reloc   the phase-9 tracker set LOST without a motion model tracks a
+            mapped frame again: through the keyframe database (EPnP runs),
+            within 0.1 m of the true pose
+11. loop    the last essential-graph and global-BA problems of phase 9
+            solved again on the card and on the CPU in float64 (camera
+            centres within 1e-6 m) and in float32, with times, and once
+            more on the card under torch.profiler (kernel launches, device
+            operations and their busy time); the word ids
+            of every phase-9 keyframe computed again on the CPU must equal
+            the card's
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.
@@ -63,18 +84,22 @@ import numpy as np
 import torch
 
 from orbslam2_tpu_torch.backend import ba
-from orbslam2_tpu_torch.frontend import kernels, local_mapping
+from orbslam2_tpu_torch.backend import pose_graph
+from orbslam2_tpu_torch.frontend import kernels, local_mapping, loop_closing
+from orbslam2_tpu_torch.frontend import tracking as tracking_mod
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
 from orbslam2_tpu_torch.frontend.triangulation import triangulate_neighbors
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.io.evaluate import ate_rmse
 from orbslam2_tpu_torch.io.synthetic import SyntheticSequence
 from orbslam2_tpu_torch.ops import cuda_orb, orb
+from orbslam2_tpu_torch.place.pretrained import get_large_vocabulary
 from orbslam2_tpu_torch.slammap import covisibility
 from orbslam2_tpu_torch.slammap.device_map import FIELDS as DEVICE_MIRROR_FIELDS
 from orbslam2_tpu_torch.slammap.device_map import DeviceKFStore, DeviceMapMirror
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
-from orbslam2_tpu_torch.utils.profiling import event_ms, kernel_device_ms, queued_ms
+from orbslam2_tpu_torch.utils.profiling import (device_activity, event_ms, kernel_device_ms,
+                                                queued_ms)
 
 # angle and descriptor tolerances between the kernel and its plain version:
 # both round the same float32 arithmetic, but sum the 709 disc pixels in
@@ -100,6 +125,15 @@ WARM_FRAMES = 5           # frames before the timed steady-state window
 BA_TRANSLATION_TOL_M = 1e-6
 BA_TIMED_SOLVES = 5       # solves timed per precision on the card
 BA_CLASS_CHANGE_MAX = 0.01
+
+N_FRAMES_PLACE = 100      # the place-recognition drive (phase 9)
+PLACE_KF_EVERY = 4        # its keyframe cadence
+PLACE_ATE_MAX_M = 0.15
+RELOC_FRAME = 50          # the mapped frame phase 10 relocalizes on
+RELOC_TOL_M = 0.10
+# essential graph and global BA, card against CPU in float64: as phase 6
+LOOP_TRANSLATION_TOL_M = 1e-6
+CARD = "cuda"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -341,28 +375,37 @@ def check_kernel(ex, frame0) -> dict:
                          "kernel's own duration on the card"}
 
 
-def drive(name, track, tracker, frames, seq) -> dict:
-    """Drive `track` over `frames`, back to back, with the kernel's launch
-    count set to 0 just before and read just after, and check the drive:
-    every frame after initialisation tracked, one launch a frame. -> the
-    drive's measured entries."""
+def drive(name, track, tracker, frames, seq, pace=None) -> dict:
+    """Drive `track` over `frames`, back to back or after `pace()` (called
+    before each frame, outside its time), with the kernel's launch count set
+    to 0 just before and read just after, and check the drive: every frame
+    after initialisation tracked, one launch a frame. -> the drive's
+    measured entries."""
     n_frames = len(frames)
     cuda_orb.fused_orient_describe.launches = 0
     frame_ms = []
     tracked = 0
     first_ok = t_steady = None
+    waited = 0.0
     with ClockSampler() as clocks:
         for i, (gray, depth) in enumerate(frames):
+            if pace is not None:
+                t_wait = time.perf_counter()
+                pace()
+                waited += time.perf_counter() - t_wait if i > WARM_FRAMES else 0.0
             if i == WARM_FRAMES:
                 torch.cuda.synchronize()
                 t_steady = time.perf_counter()
             before = cuda_orb.fused_orient_describe.launches
+            rebuilt = tracker.rebuilt_frames
             t_frame = time.perf_counter()
             tcw = track(gray, depth, i / seq.fps)
             frame_ms.append((time.perf_counter() - t_frame) * 1e3)  # ends in a fetch
             built = cuda_orb.fused_orient_describe.launches - before
-            if built != 1:
-                fail(f"{name}: frame {i}: {built} kernel launches, expected 1")
+            # a frame whose map a loop correction rebased mid-step is built again
+            expected = 1 + tracker.rebuilt_frames - rebuilt
+            if built != expected:
+                fail(f"{name}: frame {i}: {built} kernel launches, expected {expected}")
             if tcw is not None:
                 tracked += 1
                 if first_ok is None:
@@ -371,7 +414,7 @@ def drive(name, track, tracker, frames, seq) -> dict:
                 fail(f"{name}: frame {i} lost after initialisation at frame {first_ok}")
         torch.cuda.synchronize()
         n_steady = n_frames - WARM_FRAMES
-        ms_per_frame = (time.perf_counter() - t_steady) / n_steady * 1e3
+        ms_per_frame = (time.perf_counter() - t_steady - waited) / n_steady * 1e3
     launches = cuda_orb.fused_orient_describe.launches
     steady = np.array(frame_ms[WARM_FRAMES:])
     fused_frames = tracker.stats.summary().get("fused_step", {}).get("n", 0)
@@ -389,10 +432,11 @@ def drive(name, track, tracker, frames, seq) -> dict:
         fail(f"{name}: only {fused_frames} frames went through the fused step")
     if any(t.device.type != "cuda" for t in on_card):
         fail(f"{name}: a tensor of the fused step is not on the card")
-    if launches != n_frames:
-        fail(f"{name}: {launches} launches, expected {n_frames}")
+    if launches != n_frames + tracker.rebuilt_frames:
+        fail(f"{name}: {launches} launches, expected {n_frames} frames + "
+             f"{tracker.rebuilt_frames} rebuilt")
     return dict(launches=launches, first_ok=first_ok, tracked=tracked,
-                fused_frames=fused_frames,
+                fused_frames=fused_frames, rebuilt_frames=tracker.rebuilt_frames,
                 revalidated_frames=tracker.revalidated_frames, ms_per_frame=ms_per_frame,
                 median_ms=float(np.median(steady)),
                 p95_ms=float(np.percentile(steady, 95)),
@@ -708,6 +752,331 @@ def check_mapping_searches(system, cam, orb_cfg) -> dict:
                 tri_card_s=tri_cs, tri_cpu_s=tri_us, fuse_card_s=fuse_cs, fuse_cpu_s=fuse_us)
 
 
+class LoopCapture:
+    """Keeps the last essential-graph and global-BA problems the loop closer
+    solves (the GBA on its own thread) and every BoW transform the tracker
+    makes, while the context is open."""
+
+    def __enter__(self):
+        self.eg_solve = loop_closing.pose_graph.optimize_essential_graph
+        self.gba_solve = loop_closing.ba.bundle_adjust_pcg
+        self.word_ids = tracking_mod.Tracker._word_ids
+        self.eg = self.gba = None
+        self.words = []
+
+        def eg(*args, **kw):
+            self.eg = (args, kw)
+            return self.eg_solve(*args, **kw)
+
+        def gba(problem, cam, **kw):
+            self.gba = (problem, kw)
+            return self.gba_solve(problem, cam, **kw)
+
+        def words(tracker, fr):
+            out = self.word_ids(tracker, fr)
+            self.words.append((fr.kp.desc, fr.kp.valid, out))
+            return out
+
+        loop_closing.pose_graph.optimize_essential_graph = eg
+        loop_closing.ba.bundle_adjust_pcg = gba
+        tracking_mod.Tracker._word_ids = words
+        return self
+
+    def __exit__(self, *exc):
+        loop_closing.pose_graph.optimize_essential_graph = self.eg_solve
+        loop_closing.ba.bundle_adjust_pcg = self.gba_solve
+        tracking_mod.Tracker._word_ids = self.word_ids
+
+
+def place_drive(name, cam, orb_cfg, voc, what):
+    """One place-recognition drive (phase 9): the panorama through
+    SLAMSystem.track_rgbd with a vocabulary and the mapping worker, paced.
+    -> (entries, system with its worker still running, LoopCapture)."""
+    print(f"[{name}] SLAMSystem.track_rgbd with a {voc.n_words}-word vocabulary and "
+          f"the mapping worker, panorama (room world), {N_FRAMES_PLACE} frames, {what}, "
+          f"a keyframe every {PLACE_KF_EVERY} frames, loop consistency 2, paced while "
+          f"two keyframes are queued", flush=True)
+    t0 = time.perf_counter()
+    seq = SyntheticSequence(cam, n_frames=N_FRAMES_PLACE, trajectory="panorama", seed=7,
+                            world="room")
+    frames = [seq.render(i) for i in range(N_FRAMES_PLACE)]
+    print(f"  rendered in {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = SLAMConfig(cam=cam, orb=orb_cfg, th_depth=4.0, max_keyframes=96,
+                     max_points=16384, local_point_cap=4096, max_frames_between_kf=5,
+                     min_init_features=300, force_kf_every=PLACE_KF_EVERY,
+                     pipelined_fetch=False, profile_stages=True)
+    system = SLAMSystem(cfg, Sensor.RGBD, vocabulary=voc)   # default device: the card
+    closer, worker = system.loop_closer, system.mapping_worker
+    if closer is None or worker is None or closer.device.type != "cuda":
+        fail(f"{name}: no loop closer on the card")
+    closer.cfg.consistency_threshold = 2
+
+    def pace():
+        t_wait = time.perf_counter()
+        while worker.queue_size() >= 2 and time.perf_counter() - t_wait < 30:
+            time.sleep(0.005)
+
+    frame_log = []    # per frame: its milliseconds, loops closed when it returned
+
+    def track(gray, depth, timestamp):
+        t_frame = time.perf_counter()
+        tcw = system.track_rgbd(gray, depth, timestamp)
+        frame_log.append(((time.perf_counter() - t_frame) * 1e3, closer.n_loops_closed))
+        return tcw
+
+    with LoopCapture() as captured:
+        d = drive(name, track, system.tracker, frames, seq, pace)
+        t0 = time.perf_counter()
+        if not system.wait_mapping_idle(600):    # raises a failed stage's exception
+            fail(f"{name}: mapping and loop closing did not finish within 600 s")
+        wait_s = time.perf_counter() - t0
+    ate = check_trajectory(name, system.tracker, seq, d)
+    lc_stats = closer.stats.summary()
+    mapper_stats = system.local_mapper.stats.summary()
+    print(f"  frames tracked {d['tracked']}/{N_FRAMES_PLACE}, keyframes created "
+          f"{int(system.map._kf_counter)} (live {system.map.n_keyframes()}), points live "
+          f"{system.map.n_points()}, loops closed {closer.n_loops_closed}, global BAs "
+          f"applied {closer.n_gba_applied}, superseded {closer.n_gba_superseded}, "
+          f"correction_gen {system.map.correction_gen}, local BAs applied "
+          f"{system.local_mapper.counts['ba_applied']}, dropped "
+          f"{system.local_mapper.counts['ba_dropped']} (correction_gen); frames "
+          f"revalidated {d['revalidated_frames']}; ATE-RMSE {ate:.4f} m; "
+          f"{d['ms_per_frame']:.2f} ms per steady-state frame without the pacing waits, "
+          f"median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms; kernel launches "
+          f"{d['launches']}; idle {wait_s:.2f} s after the last frame", flush=True)
+    # the loop closer holds the map lock from detection to the end of the
+    # correction; the tracker's frame that asks for the lock meanwhile waits
+    loop_frame = next((i for i, (_, n) in enumerate(frame_log) if n > 0), None)
+    stall = None
+    if loop_frame is not None:
+        lo = max(0, loop_frame - 2)
+        around = [ms for ms, _ in frame_log[lo:loop_frame + 3]]
+        k = int(np.argmax(around))
+        stall = dict(loop_seen_after_frame=loop_frame, frame=lo + k, ms=around[k],
+                     frames=f"{lo}..{lo + len(around) - 1}")
+        print(f"  the tracker saw the loop closed after frame {loop_frame}; the longest "
+              f"frame of frames {stall['frames']}: frame {stall['frame']}, "
+              f"{stall['ms']:.1f} ms (the drive's median {d['median_ms']:.2f} ms)",
+              flush=True)
+    print("  loop closer (worker thread; gba_solve on its own thread):", flush=True)
+    print(closer.stats.report(), flush=True)
+    print("  mapper stages, loop_closing included:", flush=True)
+    print(system.local_mapper.stats.report(), flush=True)
+    entries = dict(
+        geometry=what, launches=d["launches"], tracked=d["tracked"], ate_m=ate,
+        loops_closed=closer.n_loops_closed, gba_applied=closer.n_gba_applied,
+        gba_superseded=closer.n_gba_superseded, correction_gen=system.map.correction_gen,
+        local_ba_dropped=system.local_mapper.counts["ba_dropped"],
+        revalidated_frames=d["revalidated_frames"],
+        keyframes_created=int(system.map._kf_counter),
+        ms_per_frame=d["ms_per_frame"], median_ms=d["median_ms"], p95_ms=d["p95_ms"],
+        idle_after_last_frame_s=wait_s,
+        loop_closer_stage_median_ms={k: v["median_ms"] for k, v in lc_stats.items()},
+        loop_closer_stage_total_s={k: v["total_s"] for k, v in lc_stats.items()},
+        loop_closing_stage_ms=mapper_stats.get("loop_closing", {}),
+        longest_frame_at_loop=stall,
+        gba_solve_ms=lc_stats.get("gba_solve", {}).get("median_ms"))
+    return entries, system, captured, seq, frames
+
+
+def drive_place_recognition(cam, orb_cfg):
+    """Phase 9 at full width; at the verify geometry when that closes no loop."""
+    voc = get_large_vocabulary()
+    d, system, captured, seq, frames = place_drive(
+        "place", cam, orb_cfg, voc, "640x480 / 2000 features / 8 levels")
+    if d["loops_closed"] == 0:
+        print("  the full-width drive closed no loop; the phase runs again at the verify "
+              "geometry (320x240 / 800 features / 4 levels)", flush=True)
+        system.shutdown()
+        small = PinholeCamera(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320,
+                              height=240, bf=26.0)
+        d, system, captured, seq, frames = place_drive(
+            "place", small, orb.ORBConfig(n_features=800, n_levels=4), voc,
+            "320x240 / 800 features / 4 levels (verify geometry)")
+        cam = small
+    if d["tracked"] != N_FRAMES_PLACE:
+        fail(f"place: {d['tracked']}/{N_FRAMES_PLACE} frames tracked")
+    if d["loops_closed"] < 1:
+        fail("place: no loop was closed")
+    if d["gba_applied"] < 1:
+        fail("place: no global BA was applied")
+    if d["ate_m"] >= PLACE_ATE_MAX_M:
+        fail(f"place: ATE {d['ate_m']:.4f} m, limit {PLACE_ATE_MAX_M} m")
+    return d, system, captured, seq, frames, cam
+
+
+def check_relocalization(system, seq, frames) -> dict:
+    """Phase 10: the phase-9 tracker, set LOST without a motion model,
+    tracks a mapped frame again through the keyframe database."""
+    tracker = system.tracker
+    calls = []
+    solve = tracking_mod.epnp.epnp_ransac
+
+    def spy(*a, **k):
+        res = solve(*a, **k)
+        calls.append(int(res.n_inliers))
+        return res
+
+    tracker.state = TrackingState.LOST
+    tracker.velocity = None
+    tracking_mod.epnp.epnp_ransac = spy
+    cuda_orb.fused_orient_describe.launches = 0
+    try:
+        t0 = time.perf_counter()
+        tcw = system.track_rgbd(*frames[RELOC_FRAME], N_FRAMES_PLACE / seq.fps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tracking_mod.epnp.epnp_ransac = solve
+    launches = cuda_orb.fused_orient_describe.launches
+    if tcw is None or tracker.state != TrackingState.OK:
+        fail("reloc: the tracker did not relocalize")
+    err = float(np.linalg.norm(np.linalg.inv(tcw)[:3, 3]
+                               - np.linalg.inv(seq.poses[RELOC_FRAME])[:3, 3]))
+    print(f"[reloc] LOST tracker on frame {RELOC_FRAME}: relocalized with "
+          f"{tracker.matches_inliers} inliers, camera centre {err:.4f} m from the truth "
+          f"(limit {RELOC_TOL_M}), EPnP RANSAC runs {len(calls)} (inliers {calls}), "
+          f"{ms:.1f} ms for the frame, kernel launches {launches}", flush=True)
+    if not calls:
+        fail("reloc: relocalized without the keyframe database (no EPnP run)")
+    if err >= RELOC_TOL_M:
+        fail(f"reloc: {err:.4f} m from the true pose")
+    if launches != 1:
+        fail(f"reloc: {launches} kernel launches, expected 1")
+    return dict(err_m=err, epnp_runs=len(calls), epnp_inliers=calls,
+                inliers=tracker.matches_inliers, ms=ms, launches=launches)
+
+
+def _centre_diff(a: np.ndarray, b: np.ndarray) -> float:
+    """Largest camera-centre difference of two pose or Sim3 stacks."""
+    def centres(p):
+        p = p.astype(np.float64)
+        s = np.cbrt(np.linalg.det(p[:, :3, :3]))
+        r = p[:, :3, :3] / s[:, None, None]
+        return -np.einsum("kji,kj->ki", r, p[:, :3, 3] / s[:, None])
+    return float(np.linalg.norm(centres(a) - centres(b), axis=1).max())
+
+
+def _timed(fn, sync):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_loop_card_vs_cpu(captured, voc, cam) -> dict:
+    """Phase 11: the last essential graph and global BA of phase 9, card
+    against CPU in float64, and in float32; the BoW word ids of the drive
+    again on the CPU."""
+    if captured.eg is None or captured.gba is None:
+        fail("loop: phase 9 solved no essential graph or no global BA")
+    out = {}
+
+    def sync_of(dev):
+        return torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+    def as_dtype(x, dtype):
+        return x.to(dtype) if x.is_floating_point() else x
+
+    # essential graph
+    args, kw = captured.eg
+    if args[0].dtype != torch.float64 or not args[0].is_cuda:
+        fail(f"loop: the essential graph was staged as {args[0].dtype} on "
+             f"{args[0].device}, expected float64 on the card")
+    valid = args[1].cpu().numpy()
+    runs = {}
+    for dev, dtype in ((CARD, torch.float64), ("cpu", torch.float64),
+                       (CARD, torch.float32)):
+        a = [as_dtype(x.to(dev), dtype) for x in args]
+        sync = sync_of(dev)
+        pose_graph.optimize_essential_graph(*a, **kw)            # warm-up
+        (poses, _), ms = _timed(lambda: pose_graph.optimize_essential_graph(*a, **kw), sync)
+        runs[(dev, dtype)] = (poses.cpu().numpy()[valid], ms)
+    a64 = [x.to(CARD) for x in args]
+    eg_act = device_activity(lambda: pose_graph.optimize_essential_graph(*a64, **kw))
+    eg64 = _centre_diff(runs[(CARD, torch.float64)][0], runs[("cpu", torch.float64)][0])
+    eg32 = _centre_diff(runs[(CARD, torch.float32)][0], runs[("cpu", torch.float64)][0])
+    print(f"[loop] essential graph: {int(valid.sum())} keyframes, {args[3].shape[0]} edges; "
+          f"card vs CPU float64 camera centres {eg64:.3e} m (limit "
+          f"{LOOP_TRANSLATION_TOL_M}); float32 card vs float64 CPU {eg32:.3e} m; one solve: "
+          f"card float64 {runs[(CARD, torch.float64)][1]:.1f} ms, card float32 "
+          f"{runs[(CARD, torch.float32)][1]:.1f} ms, CPU float64 "
+          f"{runs[('cpu', torch.float64)][1]:.1f} ms", flush=True)
+    print(f"[loop] essential graph, card float64 under torch.profiler: "
+          f"{eg_act[0]} kernel launches, {eg_act[1]} device operations, busy "
+          f"{eg_act[2]:.1f} ms of {eg_act[3]:.1f} ms", flush=True)
+    out.update(eg_launches=eg_act[0], eg_device_ops=eg_act[1], eg_device_busy_ms=eg_act[2],
+               eg_profiled_wall_ms=eg_act[3])
+    out.update(eg_keyframes=int(valid.sum()), eg_edges=int(args[3].shape[0]),
+               eg_centre_diff_m=eg64, eg_f32_centre_diff_m=eg32,
+               eg_card_f64_ms=runs[(CARD, torch.float64)][1],
+               eg_card_f32_ms=runs[(CARD, torch.float32)][1],
+               eg_cpu_f64_ms=runs[("cpu", torch.float64)][1])
+    if eg64 > LOOP_TRANSLATION_TOL_M:
+        fail(f"loop: essential graph card vs CPU {eg64} m")
+
+    # global BA
+    problem, kw = captured.gba
+    if problem.poses.dtype != torch.float64 or not problem.poses.is_cuda:
+        fail(f"loop: the global BA was staged as {problem.poses.dtype} on "
+             f"{problem.poses.device}, expected float64 on the card")
+    cams = ~problem.cam_fixed.cpu().numpy()
+    runs = {}
+    for dev, dtype in ((CARD, torch.float64), ("cpu", torch.float64),
+                       (CARD, torch.float32)):
+        prob = ba.BAProblem(*(as_dtype(x.to(dev), dtype) for x in problem))
+        k = {key: (v.to(dev) if torch.is_tensor(v) else v) for key, v in kw.items()}
+        sync = sync_of(dev)
+        if dev == CARD:
+            ba.bundle_adjust_pcg(prob, cam, **k)                     # warm-up
+        res, ms = _timed(lambda: ba.bundle_adjust_pcg(prob, cam, **k), sync)
+        runs[(dev, dtype)] = (res.poses.cpu().numpy()[cams], res.points.cpu().numpy(), ms)
+    prob64 = ba.BAProblem(*(x.to(CARD) for x in problem))
+    k64 = {key: (v.to(CARD) if torch.is_tensor(v) else v) for key, v in kw.items()}
+    gba_act = device_activity(lambda: ba.bundle_adjust_pcg(prob64, cam, **k64))
+    pt_free = ~kw["point_fixed"].cpu().numpy()
+    gba64 = _centre_diff(runs[(CARD, torch.float64)][0], runs[("cpu", torch.float64)][0])
+    gba32 = _centre_diff(runs[(CARD, torch.float32)][0], runs[("cpu", torch.float64)][0])
+    pts64 = float(np.abs(runs[(CARD, torch.float64)][1]
+                         - runs[("cpu", torch.float64)][1])[pt_free].max())
+    n_obs = int(problem.obs_valid.sum())
+    print(f"[loop] global BA: {int(cams.sum())} free keyframes, {int(pt_free.sum())} points, "
+          f"{n_obs} observations ({problem.obs_cam.shape[0]} slots); card vs CPU float64 "
+          f"camera centres {gba64:.3e} m (limit {LOOP_TRANSLATION_TOL_M}), points "
+          f"{pts64:.3e} m; float32 card vs float64 CPU {gba32:.3e} m; one solve: card "
+          f"float64 {runs[(CARD, torch.float64)][2]:.1f} ms, card float32 "
+          f"{runs[(CARD, torch.float32)][2]:.1f} ms, CPU float64 "
+          f"{runs[('cpu', torch.float64)][2]:.1f} ms", flush=True)
+    print(f"[loop] global BA, card float64 under torch.profiler: {gba_act[0]} kernel "
+          f"launches, {gba_act[1]} device operations, busy {gba_act[2]:.1f} ms of "
+          f"{gba_act[3]:.1f} ms", flush=True)
+    out.update(gba_launches=gba_act[0], gba_device_ops=gba_act[1],
+               gba_device_busy_ms=gba_act[2], gba_profiled_wall_ms=gba_act[3])
+    out.update(gba_free_keyframes=int(cams.sum()), gba_points=int(pt_free.sum()),
+               gba_observations=n_obs, gba_centre_diff_m=gba64, gba_point_diff_m=pts64,
+               gba_f32_centre_diff_m=gba32,
+               gba_card_f64_ms=runs[(CARD, torch.float64)][2],
+               gba_card_f32_ms=runs[(CARD, torch.float32)][2],
+               gba_cpu_f64_ms=runs[("cpu", torch.float64)][2])
+    if gba64 > LOOP_TRANSLATION_TOL_M:
+        fail(f"loop: global BA card vs CPU {gba64} m")
+
+    # word ids
+    differ = n_words = 0
+    for desc, valid_kp, ids in captured.words:
+        cpu_ids = voc.transform_packed(desc.cpu(), valid_kp.cpu()).numpy()
+        differ += int((cpu_ids != ids).sum())
+        n_words += ids.size
+    print(f"[loop] BoW word ids of {len(captured.words)} transforms ({n_words} "
+          f"descriptors) card vs CPU: {differ} differ", flush=True)
+    if not captured.words or differ:
+        fail(f"loop: {differ} word ids differ between the card and the CPU")
+    out.update(word_transforms=len(captured.words), word_ids_compared=n_words,
+               word_ids_differ=differ)
+    return out
+
+
 def main() -> None:
     # ---- phase 1: device --------------------------------------------------
     if not torch.cuda.is_available():
@@ -751,6 +1120,12 @@ def main() -> None:
     ba_check = check_ba_card_vs_cpu(last_ba, cam)
     search_check = check_mapping_searches(system, cam, orb_cfg)
     dense = drive_keyframe_dense(cfg, frames, seq)
+    # ---- phases 9 to 11 ---------------------------------------------------
+    place, place_system, captured, place_seq, place_frames, place_cam = \
+        drive_place_recognition(cam, orb_cfg)
+    reloc = check_relocalization(place_system, place_seq, place_frames)
+    place_system.shutdown()           # joins the worker and a GBA; raises a failure
+    loop = check_loop_card_vs_cpu(captured, place_system.vocabulary, place_cam)
     check_no_jax("after the drives")  # a lazy import on a drive shows here
 
     print(json.dumps({"kernels": [{
@@ -761,9 +1136,12 @@ def main() -> None:
         "launches_per_frame": main_path["launches"] // N_FRAMES,
         "launches_by_path": {"slam_system_with_mapping_worker": main_path["launches"],
                              "tracker_without_mapper": tracker_alone["launches"],
-                             "keyframe_dense_mapped": dense["launches"]},
+                             "keyframe_dense_mapped": dense["launches"],
+                             "place_recognition": place["launches"],
+                             "relocalization": reloc["launches"]},
         "main_path": main_path, "tracker_without_mapper": tracker_alone,
-        "keyframe_dense_mapped": dense,
+        "keyframe_dense_mapped": dense, "place_recognition": place,
+        "relocalization": reloc, "loop_card_vs_cpu": loop,
         "local_ba_card_vs_cpu": ba_check,
         "mapping_searches_card_vs_cpu": search_check}]}), flush=True)
     print(smi_line, flush=True)

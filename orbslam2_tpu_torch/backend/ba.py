@@ -1,9 +1,9 @@
-"""Bundle adjustment: batched Schur-complement Levenberg-Marquardt (dense
-reduced camera system, for local BA).
+"""Bundle adjustment: batched Schur-complement Levenberg-Marquardt.
 
-Counterpart of ``orbslam2_tpu/backend/ba.py`` (``bundle_adjust``; the
-matrix-free PCG path of global BA comes with loop closing). The problem is
-flat tensors (poses, points, observations, masks) and every step is batched:
+Counterpart of ``orbslam2_tpu/backend/ba.py``: ``bundle_adjust`` (the dense
+reduced camera system, for local BA) and ``bundle_adjust_pcg`` (the
+matrix-free PCG Schur solve, for global BA). The problem is flat tensors
+(poses, points, observations, masks) and every step is batched:
 
 - residuals + analytic Jacobians for all observations at once, as rank-3
   per-observation blocks ([O, 3, 6], [O, 3, 3])
@@ -249,26 +249,105 @@ def _under_constrained(problem: BAProblem, active: torch.Tensor,
     return (n_obs < 2) & (n_st < 1) & ~pt_fixed
 
 
-def bundle_adjust(
-    problem: BAProblem,
-    cam: PinholeCamera,
-    phase_iters: Tuple[int, ...] = (5, 10),
-    point_fixed: Optional[torch.Tensor] = None,
-    lam0: float = 1e-4,
-) -> BAResult:
-    """Robust LM bundle adjustment, the reference's two-phase local-BA
-    schedule: phase 0 with Huber, chi2 outlier exclusion between phases,
-    later phases on inliers without Huber.
+def _solve_schur_pcg(e, jc, jp, w, obs_cam, obs_pt, n_cams, n_pts, cam_fixed,
+                     pt_fixed, lam, pcg_iters: int = 30):
+    """Matrix-free Schur solve: preconditioned conjugate gradients on the
+    reduced camera system, with S v computed through the observation lists,
+    never forming S or the camera-point coupling (the path of global BA).
 
-    `point_fixed`: optional [P] bool, points kept constant.
+    e [O,3], jc [O,3,6], jp [O,3,3], w [O] (robust weight and information,
+    zero for inactive observations). The conjugate gradient stops once
+    ||r||^2 <= 1e-6 ||b||^2 (at most `pcg_iters` steps): every step runs,
+    and a step after that changes nothing (``torch.where`` carries), where
+    the JAX package leaves a ``lax.while_loop``; no step waits for the host.
+    -> (delta_c [K,6], delta_p [P,3]).
     """
+    like = dict(dtype=e.dtype, device=e.device)
+    eye6 = torch.eye(6, **like)
+    eye3 = torch.eye(3, **like)
+    jc_w = jc * w[:, None, None]
+    jc_wt = jc_w.transpose(1, 2)                                   # [O, 6, 3]
+    jp_t = jp.transpose(1, 2)
+
+    def seg_cam(v):
+        return torch.zeros((n_cams,) + v.shape[1:], **like).index_add_(0, obs_cam, v)
+
+    def seg_pt(v):
+        return torch.zeros((n_pts,) + v.shape[1:], **like).index_add_(0, obs_pt, v)
+
+    def rows(m, v):   # per-observation matrix-vector product
+        return (m @ v[..., None])[..., 0]
+
+    h_cc = seg_cam(jc_wt @ jc)
+    h_pp = seg_pt((jp_t * w[:, None, None]) @ jp)
+    b_c = seg_cam(-rows(jc_wt, e))
+    b_p = torch.where(pt_fixed[:, None], 0.0, seg_pt(-rows(jp_t * w[:, None, None], e)))
+    h_cc_d = h_cc + lam * _diag_only(h_cc) + 1e-8 * eye6
+    h_pp_d = torch.where(pt_fixed[:, None, None], eye3,
+                         h_pp + lam * _diag_only(h_pp) + 1e-8 * eye3)
+    h_pp_inv = torch.where(pt_fixed[:, None, None], 0.0, _inv3x3(h_pp_d))
+    free = ~cam_fixed[:, None]
+
+    def to_points(v):      # y = Hpp^-1 W^T v, W^T v summed per point
+        return rows(h_pp_inv, seg_pt(rows(jp_t, rows(jc_w, v[obs_cam]))))
+
+    def to_cams(y):        # W y summed per camera
+        return seg_cam(rows(jc_wt, rows(jp, y[obs_pt])))
+
+    def schur_matvec(v):   # v [K, 6]
+        v = torch.where(free, v, 0.0)
+        return torch.where(free, rows(h_cc_d, v) - to_cams(to_points(v)), v)
+
+    # reduced right-hand side b~ = b_c - W Hpp^-1 b_p
+    b_red = torch.where(free, b_c - to_cams(rows(h_pp_inv, b_p)), 0.0)
+    # block-Jacobi preconditioner from the damped H_cc (a fixed camera has
+    # h_cc = 0: the ridge keeps it invertible and the preconditioner passes
+    # it by)
+    m_inv = _inv6x6_spd(h_cc_d + 1e-6 * eye6)
+
+    def precond(r):
+        return torch.where(free, rows(m_inv, r), r)
+
+    def dot(a, b):
+        return torch.sum(a * b)
+
+    x = torch.zeros_like(b_red)
+    r = b_red
+    z = precond(r)
+    p = z
+    rz = dot(r, z)
+    rr_stop = 1e-6 * dot(b_red, b_red)
+    for _ in range(pcg_iters):
+        run = dot(r, r) > rr_stop
+        ap = schur_matvec(p)
+        alpha = rz / torch.clamp(dot(p, ap), min=1e-20)
+        r_n = r - alpha * ap
+        z_n = precond(r_n)
+        rz_n = dot(r_n, z_n)
+        beta = rz_n / torch.clamp(rz, min=1e-20)
+        x = torch.where(run, x + alpha * p, x)
+        r = torch.where(run, r_n, r)
+        p = torch.where(run, z_n + beta * p, p)
+        rz = torch.where(run, rz_n, rz)
+    delta_c = torch.where(free, x, 0.0)
+    # back-substitute points
+    delta_p = rows(h_pp_inv, b_p - seg_pt(rows(jp_t, rows(jc_w, delta_c[obs_cam]))))
+    return delta_c, torch.where(pt_fixed[:, None], 0.0, delta_p)
+
+
+def _robust_lm(problem: BAProblem, cam: PinholeCamera, phase_iters, point_fixed,
+               lam0: float, solve) -> BAResult:
+    """The two-phase robust LM schedule shared by both solvers: phase 0 with
+    Huber, chi2 outlier exclusion between phases, later phases on inliers
+    without Huber; a fixed number of steps with ``torch.where``
+    accept/reject. `solve(prob, active, use_huber, pt_fixed, lam)` ->
+    (delta_c, delta_p)."""
     problem = problem._replace(obs_cam=problem.obs_cam.long(),
                                obs_pt=problem.obs_pt.long())
     p = problem.points.shape[0]
     dev = problem.points.device
     pt_fixed = point_fixed if point_fixed is not None \
         else torch.zeros(p, dtype=torch.bool, device=dev)
-    eye3 = torch.eye(3, dtype=problem.points.dtype, device=dev)
 
     def lm_phase(poses, points, active, use_huber, iters):
         # guard: a point with <2 active mono observations and no stereo
@@ -285,13 +364,7 @@ def bundle_adjust(
                            active_ph, use_huber)
         for _ in range(iters):
             prob = problem._replace(poses=poses, points=points)
-            h_cc, h_pp, b_c, b_p, w_cp, _ = _build_blocks(prob, cam, active_ph, use_huber)
-            # freeze fixed points by zeroing their gradient and coupling
-            b_p = torch.where(pt_fixed_ph[:, None], 0.0, b_p)
-            w_cp = torch.where(pt_fixed_ph[None, :, None, None], 0.0, w_cp)
-            h_pp = torch.where(pt_fixed_ph[:, None, None], eye3, h_pp)
-            delta_c, delta_p = _solve_schur_dense(
-                h_cc, h_pp, b_c, b_p, w_cp, problem.cam_fixed, lam)
+            delta_c, delta_p = solve(prob, active_ph, use_huber, pt_fixed_ph, lam)
             poses_new = se3.retract(poses, delta_c)
             points_new = points + torch.where(pt_fixed_ph[:, None], 0.0, delta_p)
             cost_new = _total_cost(problem._replace(poses=poses_new, points=points_new),
@@ -322,3 +395,51 @@ def bundle_adjust(
         unjudged = _under_constrained(problem, active, pt_fixed)[problem.obs_pt]
         active = active & (inlier | unjudged)
     return BAResult(poses=poses, points=points, inlier=active, cost=cost)
+
+
+def bundle_adjust(
+    problem: BAProblem,
+    cam: PinholeCamera,
+    phase_iters: Tuple[int, ...] = (5, 10),
+    point_fixed: Optional[torch.Tensor] = None,
+    lam0: float = 1e-4,
+) -> BAResult:
+    """Robust LM bundle adjustment with the dense Schur solve (local BA):
+    the reference's two-phase local-BA schedule (`_robust_lm`).
+
+    `point_fixed`: optional [P] bool, points kept constant.
+    """
+    eye3 = torch.eye(3, dtype=problem.points.dtype, device=problem.points.device)
+
+    def solve(prob, active, use_huber, pt_fixed, lam):
+        h_cc, h_pp, b_c, b_p, w_cp, _ = _build_blocks(prob, cam, active, use_huber)
+        # freeze fixed points by zeroing their gradient and coupling
+        b_p = torch.where(pt_fixed[:, None], 0.0, b_p)
+        w_cp = torch.where(pt_fixed[None, :, None, None], 0.0, w_cp)
+        h_pp = torch.where(pt_fixed[:, None, None], eye3, h_pp)
+        return _solve_schur_dense(h_cc, h_pp, b_c, b_p, w_cp, prob.cam_fixed, lam)
+
+    return _robust_lm(problem, cam, phase_iters, point_fixed, lam0, solve)
+
+
+def bundle_adjust_pcg(
+    problem: BAProblem,
+    cam: PinholeCamera,
+    phase_iters: Tuple[int, ...] = (5, 10),
+    point_fixed: Optional[torch.Tensor] = None,
+    lam0: float = 1e-4,
+    pcg_iters: int = 30,
+) -> BAResult:
+    """Large-scale BA (global BA after a loop closure): the same robust LM
+    schedule as `bundle_adjust` with the matrix-free PCG Schur solve, memory
+    O(observations)."""
+    k, p = problem.poses.shape[0], problem.points.shape[0]
+
+    def solve(prob, active, use_huber, pt_fixed, lam):
+        e, jc, jp, z = _residuals_jacobians(prob, cam)
+        w, _ = _robust_weights(e, prob, use_huber)
+        w = torch.where(active & (z > 1e-6), w, 0.0)
+        return _solve_schur_pcg(e, jc, jp, w, prob.obs_cam, prob.obs_pt, k, p,
+                                prob.cam_fixed, pt_fixed, lam, pcg_iters)
+
+    return _robust_lm(problem, cam, phase_iters, point_fixed, lam0, solve)

@@ -5,15 +5,22 @@ caller; this module never imports it) and returns the port's counterpart on
 the given device. The tests use them so both packages compute on identical
 inputs. Packed descriptors are uint32 words there and int32 bit-views here.
 A map written by the JAX ``MapState.save`` loads with the port's
-``MapState.load``: the npz format is the same.
+``MapState.load``: the npz format is the same; ``map_state_from_numpy``
+copies a live one, with its bookkeeping, and ``keyframe_db_from_numpy`` its
+keyframe database.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
 
 from orbslam2_tpu_torch.backend.pose_opt import PoseObs
 from orbslam2_tpu_torch.ops.orb import Keypoints
+from orbslam2_tpu_torch.place.vocabulary import Vocabulary
+from orbslam2_tpu_torch.slammap.keyframe_db import KeyFrameDatabase
+from orbslam2_tpu_torch.slammap.mapstate import MapCapacity, MapState
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -66,3 +73,34 @@ def pose_obs_from_numpy(pts_w, uv, inv_sigma2, is_stereo, valid,
     return PoseObs(pts_w=f32(pts_w), uv=f32(uv), inv_sigma2=f32(inv_sigma2),
                    is_stereo=_tensor(is_stereo, bool, device),
                    valid=_tensor(valid, bool, device))
+
+
+def vocabulary_from_numpy(k: int, levels: int, centers, word_weights,
+                          n_words: int) -> Vocabulary:
+    """The fields of a JAX ``Vocabulary`` -> the port's (copies)."""
+    return Vocabulary(k=int(k), levels=int(levels),
+                      centers=[np.array(c) for c in centers],
+                      word_weights=np.array(word_weights, np.float32),
+                      n_words=int(n_words))
+
+
+def map_state_from_numpy(fields: dict) -> MapState:
+    """The attributes of a JAX ``MapState`` (``vars(map)``) -> a port
+    MapState holding deep copies of them: arrays, counters, free lists,
+    loop edges and dirty sets alike."""
+    cap = fields["cap"]
+    m = MapState(MapCapacity(cap.max_keyframes, cap.max_points, cap.n_features))
+    for name in vars(m):
+        if name in fields and name != "cap":
+            setattr(m, name, copy.deepcopy(fields[name]))
+    return m
+
+
+def keyframe_db_from_numpy(voc: Vocabulary, wids: np.ndarray, wts: np.ndarray,
+                           valid: np.ndarray) -> KeyFrameDatabase:
+    """The arrays of a JAX ``KeyFrameDatabase`` -> the port's (copies)."""
+    db = KeyFrameDatabase(voc, wids.shape[0], wids.shape[1])
+    db.wids[:] = wids
+    db.wts[:] = wts
+    db.valid[:] = valid
+    return db

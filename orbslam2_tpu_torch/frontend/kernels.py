@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from orbslam2_tpu_torch.geometry import se3
+from orbslam2_tpu_torch.geometry import se3, sim3
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.ops import hamming, match
 from orbslam2_tpu_torch.ops.orb import Keypoints
@@ -186,6 +186,38 @@ def search_by_descriptor(
     won = (best_kp >= 0) & (assoc[best_kp.clamp(0, kp.n - 1)]
                             == torch.arange(q, device=best_kp.device))
     return torch.where(won, best_kp, -1), best_dist
+
+
+def search_by_sim3_dir(
+    s_dst_src: torch.Tensor,    # [4, 4] Sim3 mapping src-camera -> dst-camera
+    t_src_w: torch.Tensor,      # [4, 4] src keyframe pose (world -> camera)
+    pt_pos: torch.Tensor,       # [P, 3] world positions (src KF's map points)
+    pt_desc: torch.Tensor,      # [P, 8]
+    pt_valid: torch.Tensor,     # [P]
+    pt_min_dist: torch.Tensor,  # [P]
+    pt_max_dist: torch.Tensor,  # [P]
+    kp_dst: Keypoints,
+    radius_th: float,
+    cam: PinholeCamera,
+    scale_factor: float = 1.2,
+    n_levels: int = 8,
+    max_hamming: int = hamming.TH_HIGH,
+) -> torch.Tensor:
+    """One direction of ORBmatcher::SearchBySim3: project one keyframe's map
+    points through the candidate Sim3 into the other's image and take the
+    best descriptor match within th*scale^pred; no view-angle gate and no
+    ratio test (the two directions' mutual agreement replaces them).
+    -> [P] best dst keypoint per point, -1 = none."""
+    p_dst = sim3.apply(s_dst_src, se3.apply(t_src_w, pt_pos))
+    uv, z = cam.project(p_dst)
+    dist = torch.linalg.norm(p_dst, dim=-1)
+    in_band = (dist >= 0.8 * pt_min_dist) & (dist <= 1.2 * pt_max_dist)
+    pred = match.predict_scale_level(dist, pt_max_dist, scale_factor, n_levels)
+    radius = radius_th * scale_factor ** pred.to(torch.float32)
+    res = match.windowed_match(
+        uv, pt_desc, pt_valid & (z > 0.0) & _in_image(uv, cam) & in_band, radius,
+        torch.clamp(pred - 1, min=0), pred, kp_dst, max_dist=max_hamming)
+    return res.best_kp
 
 
 def keyframe_keypoints(row: int, kf_xy, kf_desc, kf_octave, kf_angle,

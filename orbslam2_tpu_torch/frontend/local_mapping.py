@@ -117,6 +117,7 @@ class LocalMapper:
         # the lock with re-validation. Under the synchronous path the
         # tracker's re-entrant lock makes these no-ops.
         self.map_lock = threading.RLock()
+        self.kfdb = None  # the keyframe database, set by SLAMSystem with a vocabulary
 
     # ------------------------------------------------------------------
     def process_keyframe(self, kf: int, backlog: bool = False) -> None:
@@ -643,4 +644,6 @@ class LocalMapper:
             redundant = int(((obs_count[pids] >= 3) & (finer >= 3)).sum())
             if redundant > self.cfg.kf_cull_redundancy * len(slots):
                 m.erase_keyframe(cand)
+                if self.kfdb is not None:
+                    self.kfdb.erase(cand)
                 self.counts["kf_culled"] += 1

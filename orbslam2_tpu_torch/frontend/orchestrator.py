@@ -1,21 +1,28 @@
-"""Background mapping worker.
+"""Background mapping and loop-closing worker.
 
-Counterpart of ``orbslam2_tpu/frontend/orchestrator.py`` (``MappingWorker``;
-loop closing, the worker's second stage there, is not ported yet). The
-reference runs LocalMapping as a persistent thread fed by a mutex-guarded
-keyframe queue, with tracking holding the map lock per frame. Here one
-daemon thread consumes a keyframe queue and runs the local mapper; the
-tracker keeps the per-frame work on the caller's thread and hands keyframes
-off without blocking. The tracker's re-entrant map lock, which the local
-mapper shares, plays the role of the reference's map mutex: the tracker
-holds it while it reads or writes the map, the mapper around each stage's
-host reads and writes.
+Counterpart of ``orbslam2_tpu/frontend/orchestrator.py`` (``MappingWorker``).
+The reference runs LocalMapping and LoopClosing as persistent threads fed by
+mutex-guarded keyframe queues, with tracking holding the map lock per frame.
+Here one daemon thread consumes a keyframe queue and runs the two stages in
+order: the local mapper, then (with a vocabulary) the loop closer, the
+latter under the map lock and inside a ``loop_closing`` stage of the
+mapper's StageTimer. The tracker keeps the per-frame work on the caller's
+thread and hands keyframes off without blocking. The tracker's re-entrant
+map lock, which the local mapper and the loop closer share, plays the role
+of the reference's map mutex: the tracker holds it while it reads or writes
+the map, the mapper around each stage's host reads and writes.
 
 One deliberate difference from the JAX package: its worker prints a stage's
 exception and goes on. This worker keeps the first exception, maps no
 further keyframe, and raises it again from ``insert_keyframe``,
 ``wait_idle`` and ``stop``: a mapper that fails on the card fails the run
 instead of leaving the tracker on a map that is no longer refined.
+
+A second difference: a keyframe that local mapping culled before its loop
+stage skips the loop closer here. The JAX worker passes it on, and its loop
+closer detects loops from the dead keyframe and adds it to the keyframe
+database after culling erased it, where it can come back as a loop or
+relocalization candidate (then skipped) until its slot is reused.
 """
 from __future__ import annotations
 
@@ -25,10 +32,16 @@ import threading
 import weakref
 from typing import Optional
 
+import numpy as np
+
 
 class MappingWorker:
-    def __init__(self, local_mapper):
+    def __init__(self, local_mapper, loop_closer=None, map_lock=None):
+        """`loop_closer`: run after the local mapper on every keyframe handed
+        off with word ids, under `map_lock` (the tracker's)."""
         self.local_mapper = local_mapper
+        self.loop_closer = loop_closer
+        self.map_lock = map_lock if map_lock is not None else threading.RLock()
         self.queue: "queue.Queue" = queue.Queue()
         self._idle = threading.Event()
         self._idle.set()
@@ -50,12 +63,13 @@ class MappingWorker:
         atexit.register(lambda: ref() is not None and ref()._join())
 
     # ------------------------------------------------------------------
-    def insert_keyframe(self, kf: int) -> None:
-        """Tracking -> mapping handoff (LocalMapping::InsertKeyFrame)."""
+    def insert_keyframe(self, kf: int, word_ids: Optional[np.ndarray] = None) -> None:
+        """Tracking -> mapping handoff (LocalMapping::InsertKeyFrame);
+        `word_ids` (the keyframe's BoW words) go to the loop closer."""
         self._raise_if_failed()
         with self._idle_lock:
             self._idle.clear()
-            self.queue.put(kf)
+            self.queue.put((kf, word_ids))
 
     def queue_size(self) -> int:
         return self.queue.qsize()
@@ -97,13 +111,21 @@ class MappingWorker:
             item = self.queue.get()
             if item is None:
                 break
+            kf, word_ids = item
             if self.error is None:
                 try:
                     # the local mapper manages its own lock scope; with a
                     # backlog its stages turn atomic, which throttles the
                     # tracker until mapping catches up
                     self.local_mapper.process_keyframe(
-                        item, backlog=self.queue.qsize() > 0)
+                        kf, backlog=self.queue.qsize() > 0)
+                    if self.loop_closer is not None and word_ids is not None:
+                        with self.local_mapper.stats.stage("loop_closing"), \
+                                self.map_lock:
+                            # local mapping may have culled the keyframe;
+                            # then it stays out of the keyframe database
+                            if self.loop_closer.map.kf_valid[kf]:
+                                self.loop_closer.process_keyframe(kf, word_ids)
                 except Exception as e:  # kept; raised on the caller's thread
                     self.error = e
             with self._idle_lock:

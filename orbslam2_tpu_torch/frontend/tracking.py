@@ -8,9 +8,11 @@ a flat array store (slammap/mapstate.py).
 
 What this port covers so far: RGB-D initialization from depth, the classic
 two-step path, the synchronous fused whole-frame path, keyframe insertion
-with close points spawned from depth, local mapping of every keyframe
-(inline, or on the mapping worker's thread), vocabulary-free relocalization
-through the reference keyframe, reset and trajectory bookkeeping.
+with close points spawned from depth, local mapping and (with a vocabulary)
+loop closing of every keyframe, inline or on the mapping worker's thread,
+relocalization through the keyframe database (KFDB candidates, EPnP RANSAC
+and the reference's escalation) or, without a vocabulary, through the
+reference keyframe, reset and trajectory bookkeeping.
 
 The tracker owns the map lock (a re-entrant lock shared with the local
 mapper). A classic-path frame holds it throughout; a fused frame holds it
@@ -20,9 +22,9 @@ before a mid-flight map change are validated on apply: erased or re-used
 point slots are dropped, and a frame staged before a pose correction is
 dispatched again.
 
-Stereo, monocular, localization mode, loop closing and vocabulary
-relocalization, the pipelined and batched fetch and the host-staged local
-map are rejected with NotImplementedError (see ROADMAP.md, Queue 1).
+Stereo, monocular, localization mode, the pipelined and batched fetch and
+the host-staged local map are rejected with NotImplementedError (see
+ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.ops.orb import ORBConfig, ORBExtractor
 from orbslam2_tpu_torch.slammap import covisibility
 from orbslam2_tpu_torch.slammap.mapstate import MapCapacity, MapState
+from orbslam2_tpu_torch.solvers import epnp, horn
 from orbslam2_tpu_torch.utils.profiling import StageTimer
 
 
@@ -151,6 +154,10 @@ class Tracker:
         self.map = map_state or MapState(MapCapacity(
             config.max_keyframes, config.max_points, self.extractor.n_total))
         self.local_mapper = local_mapper  # set by SLAMSystem; maps each new KF
+        # place-recognition hooks (set by SLAMSystem when a vocabulary exists)
+        self.vocabulary = None
+        self.kfdb = None
+        self.loop_closer = None
         self.state = TrackingState.NO_IMAGES_YET
         self.last_frame: Optional[frame_mod.Frame] = None
         self.velocity: Optional[np.ndarray] = None   # Tcl: last->current
@@ -179,6 +186,10 @@ class Tracker:
         # fused frames that dropped associations to points the mapper erased
         # or re-allocated while the frame's device step ran (read by drives)
         self.revalidated_frames = 0
+        # frames built again because a pose correction (loop closure, global
+        # BA) rebased the map while their fused step was in flight: each is
+        # one more extraction (read by drives)
+        self.rebuilt_frames = 0
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         """Host array -> tensor on the tracker's device."""
@@ -373,11 +384,13 @@ class Tracker:
                 if self.map.correction_gen == rec["corr_gen"]:
                     return self._fused_apply(rec, fetched)
                 self._last_pid_dev = None
+            self.rebuilt_frames += 1
             rec = self._fused_dispatch(rec["kind"], rec["imgs_d"],
                                        rec["timestamp"], frame_id=rec["frame_id"])
             with self.stats.stage("fused_dev"):
                 fetched = self._fused_fetch(rec["out"])
         with self.map_lock:
+            self.rebuilt_frames += 1
             fr = self._build_frame(rec["kind"], rec["imgs_d"], rec["timestamp"])
             return self._track_locked(fr)
 
@@ -481,6 +494,8 @@ class Tracker:
         self.ref_kf = kf
         self.last_kf_frame_id = fr.frame_id
         self._covis_w = covisibility.weight_matrix(self.map)
+        if self.kfdb is not None:
+            self.kfdb.add(kf, self._word_ids(fr))
         return True
 
     # ------------------------------------------------------------------
@@ -555,6 +570,10 @@ class Tracker:
         bookkeeping survives for export (entries referencing cleared
         keyframes resolve to their last pose)."""
         self.map.clear()
+        if self.kfdb is not None:
+            self.kfdb.__init__(self.kfdb.voc, self.cfg.max_keyframes)
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
         if self.local_mapper is not None:
             self.local_mapper._recent.clear()
         self.state = TrackingState.NOT_INITIALIZED
@@ -566,16 +585,116 @@ class Tracker:
         self._last_pid_dev = None
 
     # ------------------------------------------------------------------
-    # Relocalization without a vocabulary: single-candidate fallback via
-    # the reference keyframe (KFDB candidates + EPnP are not ported yet)
+    def _word_ids(self, fr: frame_mod.Frame) -> Optional[np.ndarray]:
+        """The frame's BoW word ids (on the tracker's device) as numpy."""
+        if self.vocabulary is None:
+            return None
+        return self.vocabulary.transform_packed(fr.kp.desc, fr.kp.valid).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Relocalization (Tracking::Relocalization): KFDB candidates ->
+    # descriptor matching -> EPnP RANSAC -> pose optimization, escalated.
+    # Without a vocabulary: one candidate, the reference keyframe.
     # ------------------------------------------------------------------
     def _relocalize(self, fr: frame_mod.Frame) -> bool:
-        fr.tcw = self.last_frame.tcw.copy() if self.last_frame is not None \
-            else np.eye(4, dtype=np.float32)
-        ok = self._track_reference_keyframe(fr)
-        if ok:
-            self.last_reloc_frame_id = fr.frame_id
-        return ok
+        if self.kfdb is None:
+            fr.tcw = self.last_frame.tcw.copy() if self.last_frame is not None \
+                else np.eye(4, dtype=np.float32)
+            ok = self._track_reference_keyframe(fr)
+            if ok:
+                self.last_reloc_frame_id = fr.frame_id
+            return ok
+
+        wids = self._word_ids(fr)
+        w = self._covis_w if self._covis_w is not None \
+            else covisibility.weight_matrix(self.map)
+        m = self.map
+        hk = fr.host_kp()
+        for cand in self.kfdb.detect_reloc_candidates(wids, w)[:5]:
+            if not m.kf_valid[cand]:
+                continue
+            q_valid = (m.kf_pt[cand] >= 0) & m.kf_kp_valid[cand]
+            best_kp, _ = kernels.search_by_descriptor(
+                self._dev(m.kf_kp_desc[cand].view(np.int32)), self._dev(q_valid),
+                self._dev(m.kf_kp_angle[cand]), fr.kp, self.cam,
+                max_hamming=50, ratio=0.75)
+            best_kp = best_kp.cpu().numpy()
+            qs = np.where(best_kp >= 0)[0]
+            if len(qs) < 15:
+                continue
+            cap = 512
+            qs = qs[:cap]
+            n = len(qs)
+            pts = np.zeros((cap, 3), np.float32)
+            uv = np.zeros((cap, 2), np.float32)
+            sigma2 = np.ones(cap, np.float32)
+            valid = np.zeros(cap, bool)
+            pids = m.kf_pt[cand, qs]
+            pts[:n] = m.pt_pos[pids]
+            kp_idx = best_kp[qs]
+            uv[:n] = hk.xy[kp_idx]
+            sigma2[:n] = self.cfg.orb.scale_factor ** (2.0 * hk.octave[kp_idx])
+            valid[:n] = m.pt_valid[pids]
+            if valid.sum() < 4:
+                continue
+            sets = horn.draw_sample_sets(valid, 300, 4, fr.frame_id * 17 + int(cand),
+                                         self.device)
+            res = epnp.epnp_ransac(self._dev(pts), self._dev(uv), self._dev(valid),
+                                   self._dev(sigma2), self.cam, sets)
+            if not bool(res.success):
+                continue
+            fr.tcw = res.tcw.cpu().numpy().astype(np.float32)
+            fr.pt_ids[:] = -1
+            inl = res.inliers.cpu().numpy()[:n]
+            fr.pt_ids[kp_idx[inl]] = pids[inl]
+            # the reference's escalation: pose optimization; under 50
+            # inliers a widened projection search (th=10, ORBdist=100) and
+            # another optimization; between 30 and 50 a narrow pass (th=3,
+            # ORBdist=64) and a last one; accepted only at >= 50
+            if not self._optimize_frame_pose(fr, min_inliers=10):
+                continue
+            n_good = self.matches_inliers
+            if n_good < 50:
+                n_add = self._reloc_project_candidate(fr, cand, 3.0, 100)
+                if n_good + n_add >= 50:
+                    self._optimize_frame_pose(fr, min_inliers=1)
+                    n_good = self.matches_inliers
+                    if 30 < n_good < 50:
+                        n_add = self._reloc_project_candidate(fr, cand, 0.75, 64)
+                        if n_good + n_add >= 50:
+                            self._optimize_frame_pose(fr, min_inliers=1)
+                            n_good = self.matches_inliers
+            if n_good >= 50:
+                self.last_reloc_frame_id = fr.frame_id
+                self.ref_kf = int(cand)
+                return True
+        return False
+
+    def _reloc_project_candidate(self, fr: frame_mod.Frame, cand: int,
+                                 radius_mult: float, max_hamming: int) -> int:
+        """SearchByProjection(F, KF, sFound, th, ORBdist) of relocalization:
+        project the candidate keyframe's map points into the frame with a
+        widened window, matching only free keypoints and skipping points
+        already associated. The radius is the view-angle base (2.5/4.0 px)
+        times `radius_mult`, as in the JAX package: th=10 is radius_mult=3.0,
+        th=3 is 0.75. -> the number of new associations."""
+        m = self.map
+        pids = m.kf_pt[cand]
+        safe = np.clip(pids, 0, m.pt_pos.shape[0] - 1)
+        valid = (pids >= 0) & m.kf_kp_valid[cand] & m.pt_valid[safe]
+        valid &= ~np.isin(pids, fr.pt_ids[fr.pt_ids >= 0])
+        kp_taken = fr.pt_ids >= 0
+        _, res = kernels.search_local_points(
+            self._dev(fr.tcw), self._dev(m.pt_pos[safe]),
+            self._dev(m.pt_desc[safe].view(np.int32)), self._dev(valid),
+            self._dev(m.pt_normal[safe]), self._dev(m.pt_min_dist[safe]),
+            self._dev(m.pt_max_dist[safe]), fr.kp, self._dev(kp_taken),
+            radius_mult, self.cam, self.cfg.orb.scale_factor, self.cfg.orb.n_levels,
+            max_hamming=max_hamming)
+        assoc = res.assoc.cpu().numpy()
+        newly = (assoc >= 0) & ~kp_taken
+        fr.pt_ids[newly] = pids[assoc[newly]]
+        return int(newly.sum())
 
     # ------------------------------------------------------------------
     # local-map tracking
@@ -748,13 +867,23 @@ class Tracker:
         with self.stats.stage("kf_covis"):
             self._covis_w = covisibility.weight_matrix(self.map)
             covisibility.assign_spanning_parent(self.map, self._covis_w, kf)
+        wids = self._word_ids(fr)
         if self.mapping_worker is not None:
             # hand the keyframe to the background worker
             with self.stats.stage("kf_handoff"):
-                self.mapping_worker.insert_keyframe(kf)
-        elif self.local_mapper is not None:
+                self.mapping_worker.insert_keyframe(kf, wids)
+            return
+        if self.local_mapper is not None:
             self.local_mapper.process_keyframe(kf)
             self._covis_w = covisibility.weight_matrix(self.map)
+        # place recognition: loop detection (which adds to the KFDB) or a
+        # plain add
+        if wids is not None and self.map.kf_valid[kf]:
+            if self.loop_closer is not None:
+                if self.loop_closer.process_keyframe(kf, wids):
+                    self._covis_w = covisibility.weight_matrix(self.map)
+            elif self.kfdb is not None:
+                self.kfdb.add(kf, wids)
 
     # ------------------------------------------------------------------
     def _insert_keyframe(self, fr: frame_mod.Frame) -> int:

@@ -1,15 +1,17 @@
 """System facade: the public entry point of the port.
 
 Counterpart of ``orbslam2_tpu/system.py`` (the reference's
-ORB_SLAM2::System): constructs the map, the tracker and the local mapper,
-starts the mapping worker (``async_mapping``, the default) and exposes the
-RGB-D track call, reset, shutdown, map save/load and the trajectory savers.
+ORB_SLAM2::System): constructs the map, the tracker and the local mapper
+and, with a vocabulary, the keyframe database and the loop closer; starts
+the mapping worker (``async_mapping``, the default) and exposes the RGB-D
+track call, reset, shutdown, map save/load and the trajectory savers.
 
-Every keyframe is mapped (triangulation, fusion, local BA, culling), on the
-worker's thread or inline at insertion. Loop closing and vocabulary-based
-relocalization, stereo, monocular and localization mode are not ported yet:
-a request for any of them raises NotImplementedError naming the ROADMAP
-item; nothing is ignored silently.
+Every keyframe is mapped (triangulation, fusion, local BA, culling) and,
+with a vocabulary, goes through loop detection and correction, on the
+worker's thread or inline at insertion; a lost tracker relocalizes through
+the keyframe database. Stereo, monocular and localization mode are not
+ported yet: a request for any of them raises NotImplementedError naming the
+ROADMAP item; nothing is ignored silently.
 """
 from __future__ import annotations
 
@@ -17,11 +19,14 @@ import enum
 from typing import Optional
 
 import numpy as np
+import torch
 
 from orbslam2_tpu_torch.frontend.local_mapping import LocalMapper, LocalMapperConfig
+from orbslam2_tpu_torch.frontend.loop_closing import LoopCloser, LoopCloserConfig
 from orbslam2_tpu_torch.frontend.orchestrator import MappingWorker
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
 from orbslam2_tpu_torch.io import trajectory as traj_io
+from orbslam2_tpu_torch.slammap.keyframe_db import KeyFrameDatabase
 from orbslam2_tpu_torch.slammap.mapstate import MapState
 
 
@@ -38,14 +43,13 @@ def _not_ported(what: str) -> NotImplementedError:
 class SLAMSystem:
     def __init__(self, config: SLAMConfig, sensor: Sensor, vocabulary=None,
                  device="cuda"):
-        """`device`: where the per-frame work and the mapping run; "cuda"
-        unless the caller asks for "cpu". `vocabulary` must be None until
-        place recognition is ported."""
+        """`device`: where the per-frame work, the mapping and the loop
+        closing run; "cuda" unless the caller asks for "cpu". `vocabulary`:
+        a place.vocabulary.Vocabulary (e.g. place.pretrained's), or None to
+        run without place recognition (no loop closing; relocalization then
+        tries the reference keyframe only)."""
         if sensor != Sensor.RGBD:
             raise _not_ported(f"sensor {sensor.name}")
-        if vocabulary is not None:
-            raise _not_ported("place recognition (loop closing, vocabulary "
-                              "relocalization)")
         self.cfg = config
         self.sensor = sensor
         # the tracker rejects unported config values and owns the map and
@@ -61,9 +65,28 @@ class SLAMSystem:
         self.local_mapper.stats.enabled = config.profile_stages
         self.local_mapper.map_lock = self.tracker.map_lock
         self.tracker.local_mapper = self.local_mapper
+        self.vocabulary = vocabulary
+        self.kfdb = None
+        self.loop_closer = None
+        if vocabulary is not None:
+            self.kfdb = KeyFrameDatabase(vocabulary, config.max_keyframes)
+            self.loop_closer = LoopCloser(
+                self.map, config.cam, self.kfdb,
+                LoopCloserConfig(scale_factor=config.orb.scale_factor,
+                                 n_levels=config.orb.n_levels,
+                                 async_gba=config.async_mapping),
+                device=self.device)
+            self.loop_closer.stats.enabled = config.profile_stages
+            # one map lock shared by tracker, mapper and the GBA thread
+            self.loop_closer.map_lock = self.tracker.map_lock
+            self.local_mapper.kfdb = self.kfdb
+        self.tracker.vocabulary = vocabulary
+        self.tracker.kfdb = self.kfdb
+        self.tracker.loop_closer = self.loop_closer
         self.mapping_worker = None
         if config.async_mapping:
-            self.mapping_worker = MappingWorker(self.local_mapper)
+            self.mapping_worker = MappingWorker(self.local_mapper, self.loop_closer,
+                                                self.tracker.map_lock)
             self.tracker.mapping_worker = self.mapping_worker
 
     # ------------------------------------------------------------------
@@ -89,20 +112,26 @@ class SLAMSystem:
             self.tracker.reset()
 
     def shutdown(self) -> None:
-        """System::Shutdown: map what is queued, then join the mapping
-        worker. Idempotent; raises the worker's first exception, once."""
+        """System::Shutdown: map what is queued, join the mapping worker,
+        then wait for a global BA in flight. Idempotent; raises the
+        worker's first exception once, and a failed GBA's."""
         worker, self.mapping_worker = self.mapping_worker, None
         if worker is not None:
             self.tracker.mapping_worker = None
             worker.stop()
+        if self.loop_closer is not None:
+            self.loop_closer.wait_gba()
 
     def wait_mapping_idle(self, timeout: float = 60.0) -> bool:
-        """Block until background mapping has drained (before reading the
-        trajectory or saving the map). -> False on timeout; raises the
-        worker's exception if a mapping stage failed."""
-        if self.mapping_worker is None:
-            return True
-        return self.mapping_worker.wait_idle(timeout)
+        """Block until background mapping and a global BA in flight have
+        drained (before reading the trajectory or saving the map). -> False
+        on timeout; raises the exception of a failed mapping stage or GBA."""
+        ok = True
+        if self.mapping_worker is not None:
+            ok = self.mapping_worker.wait_idle(timeout)
+        if self.loop_closer is not None:
+            ok = self.loop_closer.wait_gba(timeout) and ok
+        return ok
 
     # ------------------------------------------------------------------
     def tracking_state(self) -> TrackingState:
@@ -138,6 +167,13 @@ class SLAMSystem:
         with self.tracker.map_lock:
             # copy arrays into the existing shared MapState instance
             self.map.__dict__.update(loaded.__dict__)
+            if self.kfdb is not None:
+                self.kfdb.__init__(self.vocabulary, self.cfg.max_keyframes)
+                for kf in self.map.keyframe_ids():
+                    self.kfdb.add(int(kf), self.vocabulary.transform_packed(
+                        torch.from_numpy(self.map.kf_kp_desc[kf].view(np.int32)).to(self.device),
+                        torch.from_numpy(self.map.kf_kp_valid[kf]).to(self.device)
+                    ).cpu().numpy())
         self.tracker.state = TrackingState.LOST if self.map.n_keyframes() \
             else TrackingState.NO_IMAGES_YET
 

@@ -120,6 +120,34 @@ def kernel_device_ms(fn, reps: int, kernel_name: str, tries: int = 3):
     return None, 0
 
 
+def device_activity(fn):
+    """One call of ``fn`` under ``torch.profiler``. -> (kernel launches the
+    host made, operations the card ran (kernels, copies, fills), the sum of
+    their device milliseconds, the call's wall milliseconds). The device sum
+    over the wall time is the share of the call the card was busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops = 0
+    device_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name == "CPU":
+            if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                         "cuLaunchKernelEx"):
+                launches += e.count
+        else:
+            ops += e.count
+            device_us += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+    return launches, ops, device_us / 1e3, wall_ms
+
+
 def queued_ms(fn, reps: int, hold_cycles: int = 100_000_000) -> float:
     """Device milliseconds per call of ``fn`` without the host's pace: the
     calls are queued behind a spin kernel of ``hold_cycles`` clock cycles

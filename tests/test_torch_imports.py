@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of orbslam2_tpu_torch, and
 chip_smoke.py, pulls in neither jax nor the JAX package, and neither does a
-drive whose keyframes the mapping worker's thread maps; its entry points
-refuse to run without a GPU unless the caller asks for the CPU."""
+drive whose keyframes the mapping worker's thread maps and hands to loop
+closing, nor reading the port's vocabulary (its own copy of the data); its
+entry points refuse to run without a GPU unless the caller asks for the
+CPU."""
 import os
 import pkgutil
 import subprocess
@@ -20,8 +22,15 @@ MODULES = sorted(
                                           "orbslam2_tpu_torch."))
 
 _PROBE = """
-import importlib, importlib.util, sys
+import builtins, importlib, importlib.util, io, os, sys
 names = sys.argv[1:]
+# every file the process opens by name (numpy's loader uses open)
+opened = []
+_open = builtins.open
+def _spy(file, *a, **k):
+    opened.append(os.path.abspath(str(file)))
+    return _open(file, *a, **k)
+builtins.open = _spy
 for name in names:
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
@@ -34,24 +43,27 @@ from orbslam2_tpu_torch.frontend.tracking import SLAMConfig
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.io.synthetic import SyntheticSequence
 from orbslam2_tpu_torch.ops.orb import ORBConfig
+from orbslam2_tpu_torch.place.pretrained import get_large_vocabulary
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 torch.set_num_threads(1)
 cam = PinholeCamera(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 cfg = SLAMConfig(cam=cam, orb=ORBConfig(n_features=400, n_levels=4), th_depth=4.0,
                  max_keyframes=8, max_points=2048, local_point_cap=1024,
                  min_init_features=200, force_kf_every=2, pipelined_fetch=False)
-system = SLAMSystem(cfg, Sensor.RGBD, device="cpu")
+system = SLAMSystem(cfg, Sensor.RGBD, vocabulary=get_large_vocabulary(), device="cpu")
 seq = SyntheticSequence(cam, n_frames=5, trajectory="lateral", seed=1)
 for i in range(5):
     system.track_rgbd(*seq.render(i), i / 30.0)
 system.shutdown()
-print("KEYFRAMES", system.map.n_keyframes(), "MAPPED", system.local_mapper.counts)
+print("KEYFRAMES", system.map.n_keyframes(), "IN KFDB", int(system.kfdb.valid.sum()),
+      "MAPPED", system.local_mapper.counts)
+read = [f for f in opened if "orbslam2_tpu/" in f.replace("orbslam2_tpu_torch/", "")]
 
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "orbslam2_tpu" or m.startswith("orbslam2_tpu."))
-print("IMPORTED", len(names), "BAD", bad)
-sys.exit(1 if bad else 0)
+print("IMPORTED", len(names), "BAD", bad, "READ", read)
+sys.exit(1 if bad or read else 0)
 """
 
 
@@ -63,7 +75,11 @@ def test_every_module_is_listed():
             "slammap.covisibility", "slammap.point_stats", "io.synthetic",
             "io.evaluate", "io.trajectory", "utils.profiling",
             "geometry.triangulate", "frontend.triangulation", "backend.ba",
-            "frontend.local_mapping", "frontend.orchestrator"}
+            "frontend.local_mapping", "frontend.orchestrator",
+            "geometry.sim3", "geometry.sim3_np", "place.vocabulary",
+            "place.pretrained", "slammap.keyframe_db", "solvers.horn",
+            "solvers.epnp", "backend.sim3_opt", "backend.pose_graph",
+            "frontend.loop_closing"}
     have = {m[len("orbslam2_tpu_torch."):] for m in MODULES} | {"__init__"}
     assert want <= have, want - have
 
@@ -75,8 +91,8 @@ def test_port_and_chip_smoke_import_without_jax():
         [sys.executable, "-c", _PROBE, "orbslam2_tpu_torch", *MODULES],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert f"IMPORTED {len(MODULES) + 1} BAD []" in proc.stdout
-    assert "KEYFRAMES 3" in proc.stdout, proc.stdout
+    assert f"IMPORTED {len(MODULES) + 1} BAD [] READ []" in proc.stdout
+    assert "KEYFRAMES 3 IN KFDB 3" in proc.stdout, proc.stdout
 
 
 def test_sources_do_not_name_jax_imports():
@@ -98,8 +114,12 @@ def test_numerics_policy_is_set():
 
 
 def test_default_device_raises_without_a_gpu():
+    from orbslam2_tpu_torch.frontend.loop_closing import LoopCloser
     from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker
     from orbslam2_tpu_torch.geometry.camera import PinholeCamera
+    from orbslam2_tpu_torch.place.pretrained import get_default_vocabulary
+    from orbslam2_tpu_torch.slammap.keyframe_db import KeyFrameDatabase
+    from orbslam2_tpu_torch.slammap.mapstate import MapCapacity, MapState
     from orbslam2_tpu_torch.system import SLAMSystem, Sensor
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")
@@ -111,6 +131,15 @@ def test_default_device_raises_without_a_gpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         Tracker(cfg)
     assert SLAMSystem(cfg, Sensor.RGBD, device="cpu").device.type == "cpu"
+    # place recognition: the system with a vocabulary and the loop closer
+    voc = get_default_vocabulary()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SLAMSystem(cfg, Sensor.RGBD, vocabulary=voc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoopCloser(MapState(MapCapacity(8, 64, 16)), cfg.cam, KeyFrameDatabase(voc, 8))
+    system = SLAMSystem(cfg, Sensor.RGBD, vocabulary=voc, device="cpu")
+    assert system.loop_closer.device.type == "cpu" and system.kfdb is not None
+    assert system.local_mapper.kfdb is system.kfdb
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -27,6 +27,7 @@ from orbslam2_tpu_torch.geometry.camera import PinholeCamera as TCamera
 from orbslam2_tpu_torch.io import evaluate as tevaluate
 from orbslam2_tpu_torch.io.trajectory import load_tum
 from orbslam2_tpu_torch.ops.orb import ORBConfig as TORBConfig
+from orbslam2_tpu_torch.place.pretrained import get_default_vocabulary
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
 import torch_port_helpers  # noqa: F401  (caps torch's intra-op threads)
@@ -169,8 +170,11 @@ def test_unported_sensors_and_modes_are_refused():
     for sensor in (Sensor.STEREO, Sensor.MONOCULAR):
         with pytest.raises(NotImplementedError, match=sensor.name):
             SLAMSystem(cfg, sensor, device="cpu")
-    with pytest.raises(NotImplementedError, match="place recognition"):
-        SLAMSystem(cfg, Sensor.RGBD, vocabulary=object(), device="cpu")
+    # place recognition is ported: a vocabulary builds the database and the
+    # loop closer
+    with_voc = SLAMSystem(cfg, Sensor.RGBD, vocabulary=get_default_vocabulary(),
+                          device="cpu")
+    assert with_voc.kfdb is not None and with_voc.loop_closer is not None
     system = SLAMSystem(cfg, Sensor.RGBD, device="cpu")
     with pytest.raises(NotImplementedError):
         system.activate_localization_mode()

@@ -2,6 +2,7 @@
 inputs go through a JAX function of orbslam2_tpu and its PyTorch counterpart
 in orbslam2_tpu_torch (device "cpu"), and the outputs are compared as numpy
 arrays."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -32,6 +33,17 @@ def n(x):
     return np.asarray(x)
 
 
+def jax_sample_sets(valid, iters, size, seed, device="cpu"):
+    """The RANSAC sample sets the JAX package draws for a seed (its split +
+    choice repeated), in the signature of the port's
+    ``horn.draw_sample_sets``, so that a test hands the port JAX's draws."""
+    key = jax.random.PRNGKey(seed)
+    probs = jnp.asarray(valid, jnp.float32) / max(int(np.sum(valid)), 1)
+    keys = jax.random.split(key, iters)
+    return t(np.asarray(jax.vmap(lambda k_: jax.random.choice(
+        k_, len(valid), (size,), replace=False, p=probs))(keys))).long()
+
+
 def desc_np(x):
     """Packed descriptors of either package -> numpy uint32 words."""
     if isinstance(x, torch.Tensor):
@@ -43,6 +55,15 @@ def hamming_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Per-row bit differences of two [K, 8] uint32 arrays."""
     x = np.ascontiguousarray(a ^ b).view(np.uint8)
     return np.unpackbits(x, axis=1).sum(axis=1)
+
+
+def camera_centres(poses) -> np.ndarray:
+    """Camera centres of Tcw poses or Sim3s [..., 4, 4] (scale divided out),
+    float64."""
+    p = np.asarray(n(poses), np.float64)
+    s = np.cbrt(np.linalg.det(p[..., :3, :3]))
+    r = p[..., :3, :3] / s[..., None, None]
+    return -np.einsum("...ji,...j->...i", r, p[..., :3, 3] / s[..., None])
 
 
 def angle_diff(a: np.ndarray, b: np.ndarray) -> np.ndarray:
