@@ -16,9 +16,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             all-levels launch on the 8 levels (2000 slots) and on one table
             that mixes the three edge geometries with a level whose keypoints
             fall short of its budget; then the times: wrapper calls by CUDA
-            events (host-paced), the kernel's own duration on the card, eight
-            one-level calls, the plain version, the bytes bound and the
-            duration of an empty kernel on the same grid
+            events (host-paced), the kernel's own duration on the card with
+            L2 flushed before each launch (the setting of the HBM bytes
+            bound) and with its inputs left in L2, eight one-level calls,
+            the plain version, the bytes bound and the duration of an empty
+            kernel on the same grid
 4. tracker  the first 30 frames of the 640x480 / 2000-feature / 8-level
             RGB-D drive (shuttle trajectory, cluttered world) through a
             Tracker without a local mapper (the path of the port's first
@@ -68,14 +70,41 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             operations and their busy time); the word ids
             of every phase-9 keyframe computed again on the CPU must equal
             the card's
+12. stereo  SLAMSystem.track_stereo at KITTI geometry (1241x376, KITTI 00
+            intrinsics, 2000 features, 8 levels) and bench_kitti_full's
+            capacities (1536 keyframes, 150 000 points, allocated on the
+            card), the 10 000-word vocabulary, the mapping worker and loop
+            consistency 2, on bench_kitti_full's 420 frames of two laps of
+            the room circuit (circuit2, seed 9),
+            paced by bench_kitti_full's backlog gate (a frame waits while a
+            keyframe is queued); fails unless tracking starts before frame
+            20 with no frame lost after it, a loop is closed, the ATE at true
+            scale is under 0.25 m, the kernel is launched once per stereo
+            frame build (both images in one launch) and the map-graph engine
+            was loaded from orbslam2_tpu_torch/_build/; prints ms per frame,
+            keyframes and points, stereo matches per frame, the mapper's,
+            loop closer's and tracker's stage times (kf_covis among them) and
+            the longest tracker frame around the loop
+13. stereo parts  match_stereo on frame 0 on the card and on the CPU with the
+            same keypoints and pyramids (matches, uR, depth against the
+            renderer's truth, times, the SAD refinement's time); the
+            one-launch describe of both images' 16 levels against its plain
+            version, timed as in phase 3 beside one image's 8 levels; every
+            native map-graph binding against its numpy plain version on
+            phase 12's final map, with both times
 
-Then one JSON line {"kernels": [...]}, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}.
+Then one JSON line {"kernels": [...]} (phase 3's numbers and phase 5's
+launches at its top level, phase 13's 16-level launch and phase 12's launches
+under "stereo_16_levels"), the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -92,9 +121,9 @@ from orbslam2_tpu_torch.frontend.triangulation import triangulate_neighbors
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.io.evaluate import ate_rmse
 from orbslam2_tpu_torch.io.synthetic import SyntheticSequence
-from orbslam2_tpu_torch.ops import cuda_orb, orb
+from orbslam2_tpu_torch.ops import cuda_orb, orb, stereo
 from orbslam2_tpu_torch.place.pretrained import get_large_vocabulary
-from orbslam2_tpu_torch.slammap import covisibility
+from orbslam2_tpu_torch.slammap import covisibility, native, point_stats
 from orbslam2_tpu_torch.slammap.device_map import FIELDS as DEVICE_MIRROR_FIELDS
 from orbslam2_tpu_torch.slammap.device_map import DeviceKFStore, DeviceMapMirror
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
@@ -222,6 +251,21 @@ def edge_level(ex, h, w, dev):
     return raw, blur, ys, xs
 
 
+def describe_bound(raws, ys, budgets):
+    """The least time one describe launch over these levels could take on
+    the card. -> (keypoints, bytes, operations, bound ms, what bounds it)."""
+    n_kp = sum(y.numel() for y in ys)
+    # each image read once; per keypoint two int64 coordinates read; per slot
+    # an angle and eight words written; the pattern and the level table once
+    n_bytes = sum(2 * raw.numel() * 4 for raw in raws) + n_kp * 16 \
+        + sum(budgets) * 36 + 256 * 16 + cuda_orb.LEVEL_TABLE_BYTES
+    n_ops = n_kp * OPS_PER_KEYPOINT
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
+    return (n_kp, n_bytes, n_ops, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def check_kernel(ex, frame0) -> dict:
     """Phase 3: the kernel against its plain version on the card, then its
     times. -> the kernel's measured entries of the `kernels` line."""
@@ -286,93 +330,106 @@ def check_kernel(ex, frame0) -> dict:
     torch.cuda.synchronize()   # a fault during a launch surfaces here
 
     # ---- times, all at the main path's shapes ----
-    def run_levels():
-        cuda_orb.fused_orient_describe_levels(*frame_args)
-
     def run_eight():
         for args in zip(raws, blurs, ys32, xs32):
             cuda_orb.fused_orient_describe(*args, pat)
 
+    times = describe_times(frame_args, run_eight, n_levels, "eight_calls",
+                           "eight one-level calls of the same kernel")
+    return {"max_abs_err": max(s["max_angle_err"] for s in stats),
+            "descriptor_exact_share_min": min(s["ham_exact_share"] for s in stats),
+            **times,
+            "ms_covers": "one frame: one launch for all pyramid levels, timed by CUDA "
+                         "events around wrapper calls (host-paced); device_ms is the "
+                         "kernel's own duration on the card with L2 flushed before "
+                         "each launch, device_ms_warm_l2 with its inputs left in L2"}
+
+
+def describe_times(frame_args, beside, beside_kernels, beside_name, beside_what) -> dict:
+    """The times of one describe launch over the levels of ``frame_args``
+    (the wrapper's arguments), and beside it of ``beside``, another way to
+    describe (``beside_kernels`` launches of the same kernel a call), on the
+    one card in alternating order. -> the entries of the `kernels` line.
+
+    ``device_ms`` is the kernel's duration on the card with L2 flushed
+    before each launch: its inputs come from device memory, as the bytes
+    bound assumes. ``device_ms_warm_l2`` leaves them in the 50 MB L2 between
+    launches, as on the main path where the pyramid was just written; the
+    HBM bound does not hold for that reading."""
+    raws, blurs, ys, xs, _, budgets = frame_args
+    name = "orient_describe_kernel"
+
+    def run():
+        cuda_orb.fused_orient_describe_levels(*frame_args)
+
     def run_plain():
         cuda_orb.fused_orient_describe_levels_plain(*frame_args)
 
-    table = cuda_orb.build_level_table(*frame_args[:4], budgets)
-    scratch = torch.zeros(1, dtype=torch.float32, device=dev)
+    table = cuda_orb.build_level_table(raws, blurs, ys, xs, budgets)
+    scratch = torch.zeros(1, dtype=torch.float32, device=raws[0].device)
 
     def run_empty():
         cuda_orb.launch_empty_kernel(table, scratch)
 
     with ClockSampler() as clocks:
-        # plain, kernel, kernel, plain on the one card; the images (6.4 MB for
-        # all levels) stay in the 50 MB L2 between launches, as on the main path
         plain_a = event_ms(run_plain, 10)
-        kernel_a = event_ms(run_levels, 200)
-        eight_a = event_ms(run_eight, 50)
-        eight_b = event_ms(run_eight, 50)
-        kernel_b = event_ms(run_levels, 200)
+        kernel_a = event_ms(run, 200)
+        beside_a = event_ms(beside, 50)
+        beside_b = event_ms(beside, 50)
+        kernel_b = event_ms(run, 200)
         plain_b = event_ms(run_plain, 10)
         # the card's own time: kernel durations from the profiler's trace, and
         # events around launches queued behind a spin kernel that hides the host
-        traced_ms, traced_n = kernel_device_ms(run_levels, 50, "orient_describe_kernel")
-        traced8_ms, traced8_n = kernel_device_ms(run_eight, 20, "orient_describe_kernel")
-        floor_traced_ms, _ = kernel_device_ms(run_empty, 50, "orient_describe_empty_kernel")
-        if traced8_ms is not None:
-            traced8_ms *= n_levels   # mean of one launch -> a frame's eight
-        queued = queued_ms(run_levels, 50)
-        queued8 = queued_ms(run_eight, 20)
+        cold_ms, cold_n = kernel_device_ms(run, 50, name, flush_l2=True)
+        warm_ms, warm_n = kernel_device_ms(run, 50, name)
+        beside_traced, beside_n = kernel_device_ms(beside, 20, name)
+        floor_traced, _ = kernel_device_ms(run_empty, 50, "orient_describe_empty_kernel")
+        if beside_traced is not None:
+            beside_traced *= beside_kernels   # mean of one launch -> a call's
+        queued = queued_ms(run, 50)
+        beside_queued = queued_ms(beside, 20)
         floor_queued = queued_ms(run_empty, 50)
     kernel_ms = 0.5 * (kernel_a + kernel_b)
-    eight_ms = 0.5 * (eight_a + eight_b)
+    beside_ms = 0.5 * (beside_a + beside_b)
     plain_ms = 0.5 * (plain_a + plain_b)
-    if traced_ms is not None and traced8_ms is not None and floor_traced_ms is not None:
-        method = (f"torch.profiler: the kernel's mean duration on the card times its "
-                  f"launches per frame ({traced_n} and {traced8_n} kernels traced)")
-        device_ms, eight_device_ms, floor_ms = traced_ms, traced8_ms, floor_traced_ms
+    traced = None not in (cold_ms, warm_ms, beside_traced, floor_traced)
+    if traced:
+        method = (f"torch.profiler: the kernel's mean duration on the card ({cold_n}, "
+                  f"{warm_n} and {beside_n} kernels traced)")
+        device_ms, warm, beside_dev, floor_ms = cold_ms, warm_ms, beside_traced, floor_traced
     else:
-        method = ("CUDA events around launches queued behind a spin kernel "
+        # no L2-flushed reading without the trace: the queued launches share L2
+        method = ("CUDA events around launches queued behind a spin kernel, L2 warm "
                   "(the profiler's trace held no device time)")
-        device_ms, eight_device_ms, floor_ms = queued, queued8, floor_queued
+        device_ms, warm, beside_dev, floor_ms = queued, queued, beside_queued, floor_queued
 
-    n_kp = sum(y.numel() for y in ys64)
-    # each image read once; per keypoint two int64 coordinates read; per slot
-    # an angle and eight words written; the pattern and the level table once
-    n_bytes = sum(2 * raw.numel() * 4 for raw in raws) + n_kp * 16 \
-        + ex.n_total * 36 + 256 * 16 + cuda_orb.LEVEL_TABLE_BYTES
-    n_ops = n_kp * OPS_PER_KEYPOINT
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    n_kp, n_bytes, n_ops, bound_ms, bound_by = describe_bound(raws, ys, budgets)
     mhz = clocks.mhz or [float("nan")]
-    print(f"  per frame (1 launch, {ex.n_total} slots, {n_kp} keypoints):\n"
+    print(f"  one launch ({sum(budgets)} slots, {n_kp} keypoints, {len(raws)} levels):\n"
           f"    ms {kernel_ms:.4f} ({kernel_a:.4f}, {kernel_b:.4f}): CUDA events around "
-          f"wrapper calls, one a frame; host-paced (the card finishes a launch before "
-          f"the host sends the next)\n"
-          f"    device_ms {device_ms:.5f} [{method}]\n"
-          f"      traced {traced_ms}, queued behind a spin kernel {queued:.5f}\n"
-          f"    eight_calls_ms {eight_ms:.4f} ({eight_a:.4f}, {eight_b:.4f}): eight one-level "
-          f"calls of the same kernel, host-paced; on the card {eight_device_ms:.5f} "
-          f"(traced {traced8_ms}, queued {queued8:.5f})\n"
+          f"wrapper calls; host-paced (the card finishes a launch before the host "
+          f"sends the next)\n"
+          f"    device_ms {device_ms:.5f} with L2 flushed before each launch; "
+          f"device_ms_warm_l2 {warm:.5f} [{method}]; queued behind a spin kernel "
+          f"{queued:.5f}\n"
+          f"    bound {bound_ms:.5f} ms by {bound_by} ({n_bytes} bytes over HBM, {n_ops} "
+          f"operations): {bound_ms / device_ms * 100:.1f} % of device_ms, "
+          f"{bound_ms / warm * 100:.1f} % of the warm reading (its inputs come from "
+          f"L2, faster than the HBM rate the bound assumes); library call: none\n"
+          f"    {beside_name}_ms {beside_ms:.4f} ({beside_a:.4f}, {beside_b:.4f}): "
+          f"{beside_what}, host-paced; on the card {beside_dev:.5f} (L2 warm; queued "
+          f"{beside_queued:.5f})\n"
           f"    launch_floor_ms {floor_ms:.5f}: an empty kernel on the same grid "
-          f"(traced {floor_traced_ms}, queued {floor_queued:.5f})\n"
+          f"(queued {floor_queued:.5f})\n"
           f"    plain {plain_ms:.3f} ms ({plain_a:.3f}, {plain_b:.3f})\n"
-          f"    bound {bound_ms:.5f} ms by {bound_by} ({n_bytes} bytes, {n_ops} operations); "
-          f"library call: none\n"
-          f"    SM clock min/median/max {min(mhz):.0f}/{np.median(mhz):.0f}/{max(mhz):.0f} MHz "
-          f"({len(clocks.mhz)} samples). The level images sit in L2; the 2000 warps "
-          f"(under a quarter of the card's 8448) are all resident at once and each "
-          f"pulls its own two 31x31 windows from L2, so the launch lasts as long as "
-          f"its slowest warp's chain of memory latencies, not the bound.", flush=True)
-    return {"max_abs_err": max(s["max_angle_err"] for s in stats),
-            "descriptor_exact_share_min": min(s["ham_exact_share"] for s in stats),
-            "ms": kernel_ms, "device_ms": device_ms, "device_ms_method": method,
-            "device_ms_queued": queued, "eight_calls_ms": eight_ms,
-            "eight_calls_device_ms": eight_device_ms, "launch_floor_ms": floor_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "ms_covers": "one frame: one launch for all pyramid levels, timed by CUDA "
-                         "events around wrapper calls (host-paced); device_ms is the "
-                         "kernel's own duration on the card"}
+          f"    SM clock min/median/max {min(mhz):.0f}/{np.median(mhz):.0f}/{max(mhz):.0f} "
+          f"MHz ({len(clocks.mhz)} samples)", flush=True)
+    return {"ms": kernel_ms, "device_ms": device_ms, "device_ms_warm_l2": warm,
+            "device_ms_method": method, "device_ms_queued": queued,
+            f"{beside_name}_ms": beside_ms, f"{beside_name}_device_ms": beside_dev,
+            f"{beside_name}_device_ms_queued": beside_queued, "launch_floor_ms": floor_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "roofline_share": bound_ms / device_ms, "library_ms": None}
 
 
 def drive(name, track, tracker, frames, seq, pace=None) -> dict:
@@ -788,6 +845,26 @@ class LoopCapture:
         tracking_mod.Tracker._word_ids = self.word_ids
 
 
+def longest_frame_at_loop(frame_log, median_ms):
+    """The longest tracker frame from two frames before the first that saw a
+    loop closed to two after it: the loop closer holds the map lock from
+    detection to the end of the correction, and the tracker's frame that
+    asks for the lock meanwhile waits. frame_log: per frame (ms, loops
+    closed when it returned). -> a dict, or None without a loop."""
+    loop_frame = next((i for i, (_, n) in enumerate(frame_log) if n > 0), None)
+    if loop_frame is None:
+        return None
+    lo = max(0, loop_frame - 2)
+    around = [ms for ms, _ in frame_log[lo:loop_frame + 3]]
+    k = int(np.argmax(around))
+    stall = dict(loop_seen_after_frame=loop_frame, frame=lo + k, ms=around[k],
+                 frames=f"{lo}..{lo + len(around) - 1}")
+    print(f"  the tracker saw the loop closed after frame {loop_frame}; the longest "
+          f"frame of frames {stall['frames']}: frame {stall['frame']}, "
+          f"{stall['ms']:.1f} ms (the drive's median {median_ms:.2f} ms)", flush=True)
+    return stall
+
+
 def place_drive(name, cam, orb_cfg, voc, what):
     """One place-recognition drive (phase 9): the panorama through
     SLAMSystem.track_rgbd with a vocabulary and the mapping worker, paced.
@@ -844,20 +921,7 @@ def place_drive(name, cam, orb_cfg, voc, what):
           f"{d['ms_per_frame']:.2f} ms per steady-state frame without the pacing waits, "
           f"median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms; kernel launches "
           f"{d['launches']}; idle {wait_s:.2f} s after the last frame", flush=True)
-    # the loop closer holds the map lock from detection to the end of the
-    # correction; the tracker's frame that asks for the lock meanwhile waits
-    loop_frame = next((i for i, (_, n) in enumerate(frame_log) if n > 0), None)
-    stall = None
-    if loop_frame is not None:
-        lo = max(0, loop_frame - 2)
-        around = [ms for ms, _ in frame_log[lo:loop_frame + 3]]
-        k = int(np.argmax(around))
-        stall = dict(loop_seen_after_frame=loop_frame, frame=lo + k, ms=around[k],
-                     frames=f"{lo}..{lo + len(around) - 1}")
-        print(f"  the tracker saw the loop closed after frame {loop_frame}; the longest "
-              f"frame of frames {stall['frames']}: frame {stall['frame']}, "
-              f"{stall['ms']:.1f} ms (the drive's median {d['median_ms']:.2f} ms)",
-              flush=True)
+    stall = longest_frame_at_loop(frame_log, d["median_ms"])
     print("  loop closer (worker thread; gba_solve on its own thread):", flush=True)
     print(closer.stats.report(), flush=True)
     print("  mapper stages, loop_closing included:", flush=True)
@@ -1077,6 +1141,288 @@ def check_loop_card_vs_cpu(captured, voc, cam) -> dict:
     return out
 
 
+KITTI_CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, width=1241,
+                 height=376, bf=386.1448)   # bench.py's bench_kitti_full (KITTI 00)
+KITTI_ORB = dict(n_features=2000, n_levels=8)
+# the stereo drive (phase 12): bench_kitti_full's two laps of the room
+# circuit, 4 pi over 420 frames (0.030 rad a frame); one lap (circuit, 2.3 pi
+# over 240 frames) revisits only its last 0.3 pi and closed no loop
+N_FRAMES_STEREO = 420
+STEREO_TRAJECTORY = "circuit2"
+STEREO_INIT_BY = 20       # tracking must start before this frame
+STEREO_ATE_MAX_M = 0.25   # the CPU twin's limit (tests/test_e2e_kitti_scale.py)
+KITTI_MAX_POINTS = 150_000
+# match_stereo card vs CPU on the same keypoints and pyramids: a SAD summed
+# in another order may flip its argmin on a near-tie, so a few keypoints
+# may be matched on one side only; uR agrees to 1e-3 px on the rest
+STEREO_FLIP_SHARE = 0.01
+STEREO_UR_TOL_PX = 1e-3
+STEREO_DEPTH_REL_MAX = 0.05   # tests/test_e2e_stereo.py:36
+# native bindings: the viewing normal and scale band are float32 in the
+# engine and mixed float32 / float64 in numpy
+NATIVE_FLOAT_RTOL = 1e-5
+
+
+def render_stereo_frames(seq, n_frames):
+    """Rectified pairs of the sequence, rendered on the host's cores."""
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        return [(l, r) for l, r, _ in pool.map(seq.render_stereo, range(n_frames))]
+
+
+def drive_stereo_kitti():
+    """Phase 12: SLAMSystem.track_stereo at KITTI geometry and capacity with
+    the 10 000-word vocabulary and the mapping worker, paced by
+    bench_kitti_full's backlog gate (a frame waits while a keyframe is
+    queued). -> (entries, system after shutdown, seq, frames)."""
+    cam = PinholeCamera(**KITTI_CAM)
+    cfg = SLAMConfig(cam=cam, orb=orb.ORBConfig(**KITTI_ORB), th_depth=cam.bf / cam.fx * 40.0,
+                     max_keyframes=1536, max_points=KITTI_MAX_POINTS, local_point_cap=4096,
+                     max_frames_between_kf=10, min_init_features=400, async_mapping=True,
+                     pipelined_fetch=False, profile_stages=True)
+    print(f"[stereo] SLAMSystem.track_stereo at KITTI geometry (1241x376, 2000 features, "
+          f"8 levels) and capacity ({cfg.max_keyframes} keyframes, {cfg.max_points} points), "
+          f"10 000-word vocabulary, mapping worker, loop consistency 2; {STEREO_TRAJECTORY} "
+          f"(room world, seed 9), {N_FRAMES_STEREO} frames, paced while a keyframe is queued",
+          flush=True)
+    t0 = time.perf_counter()
+    seq = SyntheticSequence(cam, n_frames=N_FRAMES_STEREO, trajectory=STEREO_TRAJECTORY,
+                            seed=9, world="room")
+    frames = render_stereo_frames(seq, N_FRAMES_STEREO)
+    print(f"  rendered in {time.perf_counter() - t0:.1f} s", flush=True)
+    system = SLAMSystem(cfg, Sensor.STEREO, vocabulary=get_large_vocabulary())
+    closer, worker, tracker = system.loop_closer, system.mapping_worker, system.tracker
+    if closer is None or worker is None or tracker.device.type != "cuda":
+        fail("stereo: no loop closer or mapping worker on the card")
+    closer.cfg.consistency_threshold = 2
+    m = system.map
+    mir = m.device_mirror(tracker.device)
+    if not (m.cap.max_points == len(m.pt_valid) == KITTI_MAX_POINTS
+            and mir.pt_pos.shape[0] == KITTI_MAX_POINTS and mir.pt_pos.is_cuda):
+        fail("stereo: the map is not allocated at full KITTI capacity on the card")
+
+    def pace():
+        t_wait = time.perf_counter()
+        while worker.queue_size() >= 1 and time.perf_counter() - t_wait < 30:
+            time.sleep(0.002)
+
+    frame_log = []    # per frame: its milliseconds, loops closed when it returned
+    built = []        # per frame: the Frame it built
+
+    def track(left, right, timestamp):
+        t_frame = time.perf_counter()
+        tcw = system.track_stereo(left, right, timestamp)
+        frame_log.append(((time.perf_counter() - t_frame) * 1e3, closer.n_loops_closed))
+        built.append(tracker.last_frame)
+        return tcw
+
+    d = drive("stereo", track, tracker, frames, seq, pace)
+    t0 = time.perf_counter()
+    if not system.wait_mapping_idle(600):
+        fail("stereo: mapping and loop closing did not finish within 600 s")
+    wait_s = time.perf_counter() - t0
+    system.shutdown()
+    if d["first_ok"] >= STEREO_INIT_BY:
+        fail(f"stereo: tracking started at frame {d['first_ok']}, not before {STEREO_INIT_BY}")
+    ate = check_trajectory("stereo", tracker, seq, d)    # true scale: stereo
+    lib = native.loaded_path()
+    want_lib = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), os.pardir,
+                            "_build", "libmapgraph.so")
+    if lib is None or os.path.realpath(lib) != os.path.realpath(want_lib):
+        fail(f"stereo: the map-graph engine was loaded from {lib}, not {want_lib}")
+    matches = [int((fr.ur >= 0).sum()) for fr in built]
+    lc = closer.stats.summary()
+    ms_stats = system.local_mapper.stats.summary()
+    tr_stats = tracker.stats.summary()
+    covis = tr_stats.get("kf_covis", {})
+    print(f"  frames tracked {d['tracked']}/{N_FRAMES_STEREO} from frame {d['first_ok']}, "
+          f"keyframes created {int(m._kf_counter)} (live {m.n_keyframes()}), points live "
+          f"{m.n_points()} of {m.cap.max_points}, loops closed {closer.n_loops_closed}, "
+          f"global BAs applied {closer.n_gba_applied}, ATE-RMSE {ate:.4f} m (true scale); "
+          f"{d['ms_per_frame']:.2f} ms per steady-state frame without the pacing waits, "
+          f"median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms; stereo matches per "
+          f"frame median {np.median(matches):.0f} (min {min(matches)}, max {max(matches)}); "
+          f"kernel launches {d['launches']} for {N_FRAMES_STEREO} frames "
+          f"({d['rebuilt_frames']} rebuilt); kf_covis per keyframe median "
+          f"{covis.get('median_ms', float('nan')):.2f} ms, mean "
+          f"{covis.get('mean_ms', float('nan')):.2f} ms over {covis.get('n', 0)}; idle "
+          f"{wait_s:.2f} s after the last frame; map-graph engine {lib}", flush=True)
+    stall = longest_frame_at_loop(frame_log, d["median_ms"])
+    print("  tracker stages:", flush=True)
+    print(tracker.stats.report(), flush=True)
+    print("  mapper stages (worker thread), loop_closing included:", flush=True)
+    print(system.local_mapper.stats.report(), flush=True)
+    print("  loop closer (worker thread; gba_solve on its own thread):", flush=True)
+    print(closer.stats.report(), flush=True)
+    if closer.n_loops_closed < 1:
+        fail("stereo: no loop was closed")
+    if ate >= STEREO_ATE_MAX_M:
+        fail(f"stereo: ATE {ate:.4f} m, limit {STEREO_ATE_MAX_M} m")
+    entries = dict(
+        launches=d["launches"], launches_per_frame_build=d["launches"]
+        / (N_FRAMES_STEREO + d["rebuilt_frames"]), rebuilt_frames=d["rebuilt_frames"],
+        first_ok=d["first_ok"], tracked=d["tracked"], ate_m=ate,
+        loops_closed=closer.n_loops_closed, gba_applied=closer.n_gba_applied,
+        keyframes_created=int(m._kf_counter), keyframes_live=int(m.n_keyframes()),
+        points_live=int(m.n_points()), max_points=int(m.cap.max_points),
+        ms_per_frame=d["ms_per_frame"], median_ms=d["median_ms"], p95_ms=d["p95_ms"],
+        stereo_matches_median=float(np.median(matches)),
+        kf_covis_ms=covis, idle_after_last_frame_s=wait_s, longest_frame_at_loop=stall,
+        native_library=lib,
+        tracker_stage_median_ms={k: v["median_ms"] for k, v in tr_stats.items()},
+        mapper_stage_median_ms={k: v["median_ms"] for k, v in ms_stats.items()},
+        loop_closer_stage_median_ms={k: v["median_ms"] for k, v in lc.items()},
+        sm_clock_mhz_median=float(np.median(d["mhz"])))
+    return entries, system, seq, frames
+
+
+def check_stereo_parts(system, seq, frames) -> dict:
+    """Phase 13: match_stereo card vs CPU on one KITTI pair, the paired
+    describe launch against its plain version with its times, and every
+    native map-graph binding against its numpy plain version on phase 12's
+    final map."""
+    out = {}
+    ex = system.tracker.extractor
+    cam = system.cfg.cam
+    host = lambda: None    # host-side work needs no synchronisation
+    dev = system.tracker.device
+    gl, gr = (torch.as_tensor(x, dtype=torch.float32).to(dev) for x in frames[0])
+    _, _, depth_gt = seq.render_stereo(0)
+    (kp_l, pyr_l), (kp_r, pyr_r) = ex.extract_pair_with_pyramid(gl, gr)
+    sf, budgets = ex.config.scale_factor, ex.level_budgets
+
+    def on(dev_, kp, pyr):
+        return (kp.replace(**{f: getattr(kp, f).to(dev_) for f in
+                              ("xy", "response", "angle", "octave", "size", "desc", "valid")}),
+                [p.to(dev_) for p in pyr])
+
+    args = {}
+    for where, dev_ in (("card", dev), ("cpu", torch.device("cpu"))):
+        (kl, pl), (kr, pr) = on(dev_, kp_l, pyr_l), on(dev_, kp_r, pyr_r)
+        args[where] = (kl, kr, pl, pr)
+    run = {w: (lambda w=w: stereo.match_stereo(*args[w], cam, sf, level_budgets=budgets))
+           for w in args}
+    ur_c, d_c = (x.cpu().numpy() for x in run["card"]())
+    (ur_u, d_u), cpu_ms = _timed(lambda: [x.numpy() for x in run["cpu"]()], host)
+    mc, mu = ur_c >= 0, ur_u >= 0
+    differ, both = int((mc ^ mu).sum()), mc & mu
+    ur_diff = float(np.abs(ur_c - ur_u)[both].max()) if both.any() else 0.0
+    xy = kp_l.xy.cpu().numpy()[mc]
+    xi = np.clip(np.round(xy[:, 0]).astype(int), 0, cam.width - 1)
+    yi = np.clip(np.round(xy[:, 1]).astype(int), 0, cam.height - 1)
+    gt = depth_gt[yi, xi]
+    rel = np.abs(d_c[mc][gt > 0] - gt[gt > 0]) / gt[gt > 0]
+    card_ms = event_ms(run["card"], 20)
+    act = device_activity(run["card"])
+    kl, kr, pl, pr = args["card"]
+    ur0 = kr.xy[:, 0][:kl.n]    # any right x per slot: the SAD's work does not depend on it
+
+    def run_sad():
+        stereo._sad_subpixel(pl, pr, kl.xy, ur0, sf, budgets)
+
+    sad_ms = event_ms(run_sad, 20)
+    sad_act = device_activity(run_sad)
+    print(f"[stereo parts] match_stereo on frame 0 ({kl.n} + {kr.n} keypoints): card "
+          f"{int(mc.sum())} matches, CPU {int(mu.sum())}, {differ} on one side only "
+          f"(limit {STEREO_FLIP_SHARE * 100:.0f} %), uR difference on common matches "
+          f"{ur_diff:.2e} px (limit {STEREO_UR_TOL_PX}); depth against the renderer: median "
+          f"relative error {np.median(rel):.4f} (limit {STEREO_DEPTH_REL_MAX}) over "
+          f"{rel.size} matches\n"
+          f"  one call: card {card_ms:.3f} ms (CUDA events, host-paced), CPU {cpu_ms:.1f} ms; "
+          f"under torch.profiler {act[0]} kernel launches, busy {act[2]:.3f} of "
+          f"{act[3]:.3f} ms; SAD refinement alone {sad_ms:.3f} ms, {sad_act[0]} launches, "
+          f"busy {sad_act[2]:.3f} of {sad_act[3]:.3f} ms", flush=True)
+    if not mc.any() or differ > max(2, STEREO_FLIP_SHARE * mu.sum()):
+        fail(f"stereo parts: {differ} matches differ between the card and the CPU")
+    if ur_diff > STEREO_UR_TOL_PX:
+        fail(f"stereo parts: uR differs by {ur_diff} px between the card and the CPU")
+    if not np.median(rel) < STEREO_DEPTH_REL_MAX:
+        fail(f"stereo parts: median depth error {np.median(rel):.4f}")
+    out.update(matches_card=int(mc.sum()), matches_cpu=int(mu.sum()), matches_differ=differ,
+               ur_diff_px=ur_diff, depth_rel_err_median=float(np.median(rel)),
+               match_card_ms=card_ms, match_cpu_ms=cpu_ms, match_launches=act[0],
+               match_busy_ms=act[2], match_wall_ms=act[3], sad_card_ms=sad_ms,
+               sad_launches=sad_act[0], sad_busy_ms=sad_act[2], sad_wall_ms=sad_act[3])
+
+    # ---- both images' levels in one describe launch ----
+    levels = [ex._levels(gl), ex._levels(gr)]
+    both_lv = [sum((list(lv[i]) for lv in levels), []) for i in range(4)]
+    budgets16 = list(budgets) * 2
+    args16 = (*both_lv, ex.pattern_t, budgets16)
+    args8 = (*levels[0][:4], ex.pattern_t, budgets)
+    stats = compare(f"both images, {len(budgets16)} levels, one launch",
+                    cuda_orb.fused_orient_describe_levels(*args16),
+                    cuda_orb.fused_orient_describe_levels_plain(*args16))
+
+    def run8():
+        cuda_orb.fused_orient_describe_levels(*args8)
+
+    print("  describe, one launch for both images; one image's 8 levels beside it",
+          flush=True)
+    out["describe16"] = dict(
+        max_abs_err=stats["max_angle_err"], descriptor_exact_share_min=stats["ham_exact_share"],
+        **describe_times(args16, run8, 1, "one_image_8_levels",
+                         "one launch over one image's 8 levels"),
+        ms_covers="one stereo frame build: one launch for both images' 16 levels at "
+                  "1241x376, timed by CUDA events around wrapper calls (host-paced); "
+                  "device_ms is the kernel's own duration on the card with L2 flushed "
+                  "before each launch, device_ms_warm_l2 with its inputs left in L2")
+
+    # ---- the native map-graph engine against numpy on the final map ----
+    m = system.map
+    pids = system.tracker.last_frame.pt_ids
+    pids = pids[pids >= 0]
+    pairs = {
+        "covis_weights": (lambda: covisibility.weight_matrix(m),
+                          lambda: covisibility.weight_matrix_plain(m)),
+        "invert_obs_slots": (lambda: native.invert_obs_slots(m.kf_pt, m.kf_valid,
+                                                             m.cap.max_points),
+                             m._obs_index_plain),
+        "point_obs_count": (m._point_obs_count_impl, m._point_obs_count_plain),
+        "share_from_index": (lambda: native.share_from_index(
+            *m.obs_index()[:2], pids, m.cap.max_keyframes),
+            lambda: covisibility.frame_share_plain(m, pids)),
+    }
+    # the port's weight matrix before the native engine: a [K, P] float32
+    # incidence and its product (921 MB at full capacity)
+    def dense_product():
+        inc = m.incidence().astype(np.float32)
+        w = (inc @ inc.T).astype(np.int32)
+        np.fill_diagonal(w, 0)
+        return w
+
+    pairs["covis_weights_dense"] = (lambda: covisibility.weight_matrix(m), dense_product)
+    timing = {}
+    for name, (fast, plain) in pairs.items():
+        a, fast_ms = _timed(fast, host)
+        b, plain_ms = _timed(plain, host)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            fail(f"native: {name} differs from its numpy plain version")
+        timing[name] = (fast_ms, plain_ms)
+    pts = np.flatnonzero(m.pt_valid)
+    a, b = copy.deepcopy(m), copy.deepcopy(m)
+    b._obs_index_cache = (b.obs_gen, b._obs_index_plain())
+    _, fast_ms = _timed(lambda: native.update_point_stats(a, pts, ex.config.scale_factor,
+                                                          ex.config.n_levels), host)
+    _, plain_ms = _timed(lambda: point_stats.update_points(
+        b, pts, ex.config.scale_factor, ex.config.n_levels), host)
+    timing["update_point_stats"] = (fast_ms, plain_ms)
+    if not (np.array_equal(a.pt_desc, b.pt_desc) and np.array_equal(a.pt_ref_kf, b.pt_ref_kf)):
+        fail("native: update_point_stats descriptors or reference keyframes differ")
+    for f in ("pt_normal", "pt_min_dist", "pt_max_dist"):
+        if not np.allclose(getattr(a, f), getattr(b, f), rtol=NATIVE_FLOAT_RTOL, atol=1e-6):
+            fail(f"native: update_point_stats {f} beyond rtol {NATIVE_FLOAT_RTOL}")
+    print(f"  native map-graph engine vs numpy on the final map ({m.n_keyframes()} "
+          f"keyframes, {m.n_points()} points, capacity {m.cap.max_keyframes} x "
+          f"{m.cap.max_points}; {len(pids)} frame points, {len(pts)} points updated): "
+          f"identical integers, floats within rtol {NATIVE_FLOAT_RTOL}; host ms native / "
+          f"numpy: " + ", ".join(f"{k} {v[0]:.2f} / {v[1]:.2f}" for k, v in timing.items()),
+          flush=True)
+    out.update(native_ms={k: v[0] for k, v in timing.items()},
+               numpy_ms={k: v[1] for k, v in timing.items()})
+    return out
+
+
 def main() -> None:
     # ---- phase 1: device --------------------------------------------------
     if not torch.cuda.is_available():
@@ -1092,9 +1438,14 @@ def main() -> None:
     check_no_jax("at start")
 
     # ---- phase 2: build ---------------------------------------------------
+    # the CUDA kernel library (nvcc) and the map-graph engine (g++) at once
     t0 = time.perf_counter()
-    lib_path = cuda_orb.build_kernels(force=True, ptxas_verbose=True)
-    print(f"[build] {lib_path} in {time.perf_counter() - t0:.1f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        cuda_build = pool.submit(cuda_orb.build_kernels, force=True, ptxas_verbose=True)
+        native_build = pool.submit(native.build, force=True)
+        lib_path, native_path = cuda_build.result(), native_build.result()
+    print(f"[build] {lib_path} and {native_path} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     cam = PinholeCamera(fx=520.0, fy=520.0, cx=320.0, cy=240.0,
                         width=640, height=480, bf=40.0)
@@ -1126,15 +1477,26 @@ def main() -> None:
     reloc = check_relocalization(place_system, place_seq, place_frames)
     place_system.shutdown()           # joins the worker and a GBA; raises a failure
     loop = check_loop_card_vs_cpu(captured, place_system.vocabulary, place_cam)
+    # ---- phases 12 and 13: stereo at KITTI geometry and capacity ----------
+    stereo_kitti, stereo_system, stereo_seq, stereo_frames = drive_stereo_kitti()
+    stereo_parts = check_stereo_parts(stereo_system, stereo_seq, stereo_frames)
     check_no_jax("after the drives")  # a lazy import on a drive shows here
 
     print(json.dumps({"kernels": [{
         "name": "fused_orient_describe", "route": "cuda",
         "source": "orbslam2_tpu_torch/csrc/orient_describe.cu",
         "replaces": "orbslam2_tpu/ops/pallas_orb.py:196",
+        # one launch over one 640x480 frame's 8 levels (phase 3) and the
+        # RGB-D main path's launches (phase 5), as in earlier slices; the
+        # stereo main path's launch over both images' 16 levels at 1241x376
+        # (phases 12 and 13) under stereo_16_levels
         **kernel, "launches": main_path["launches"],
         "launches_per_frame": main_path["launches"] // N_FRAMES,
-        "launches_by_path": {"slam_system_with_mapping_worker": main_path["launches"],
+        "stereo_16_levels": {**stereo_parts.pop("describe16"),
+                             "launches": stereo_kitti["launches"],
+                             "launches_per_frame": stereo_kitti["launches_per_frame_build"]},
+        "launches_by_path": {"stereo_kitti": stereo_kitti["launches"],
+                             "slam_system_with_mapping_worker": main_path["launches"],
                              "tracker_without_mapper": tracker_alone["launches"],
                              "keyframe_dense_mapped": dense["launches"],
                              "place_recognition": place["launches"],
@@ -1142,6 +1504,7 @@ def main() -> None:
         "main_path": main_path, "tracker_without_mapper": tracker_alone,
         "keyframe_dense_mapped": dense, "place_recognition": place,
         "relocalization": reloc, "loop_card_vs_cpu": loop,
+        "stereo_kitti": stereo_kitti, "stereo_parts": stereo_parts,
         "local_ba_card_vs_cpu": ba_check,
         "mapping_searches_card_vs_cpu": search_check}]}), flush=True)
     print(smi_line, flush=True)

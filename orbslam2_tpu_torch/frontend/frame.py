@@ -1,6 +1,6 @@
 """Per-frame container: ORB features + undistorted coords + depth.
 
-Counterpart of ``orbslam2_tpu/frontend/frame.py`` (RGB-D part): fixed-capacity
+Counterpart of ``orbslam2_tpu/frontend/frame.py`` (RGB-D and stereo): fixed-capacity
 masked tensors on the tracker's device for the matching and pose steps, numpy
 for host bookkeeping.
 """
@@ -14,6 +14,7 @@ import torch
 
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.ops.orb import Keypoints, ORBExtractor
+from orbslam2_tpu_torch.ops.stereo import match_stereo
 
 
 @dataclasses.dataclass
@@ -112,6 +113,47 @@ def build_frame_rgbd(
         extractor, cam,
         torch.as_tensor(gray, dtype=torch.float32).to(dev),
         torch.as_tensor(depth_img, dtype=torch.float32).to(dev))
+    n = kp.n
+    return Frame(
+        frame_id=frame_id,
+        timestamp=timestamp,
+        kp=kp,
+        ur=ur,
+        depth=depth,
+        tcw=np.eye(4, dtype=np.float32),
+        pt_ids=np.full(n, -1, np.int32),
+        is_outlier=np.zeros(n, bool),
+    )
+
+
+def _stereo_build(extractor: ORBExtractor, cam: PinholeCamera,
+                  gl: torch.Tensor, gr: torch.Tensor):
+    """Stereo frame build: extract both images (one kernel launch for both
+    images' levels), match left to right on the extractor's blurred
+    pyramids, then undistort the left keypoints. Shared by the standalone
+    frame build and the fused whole-frame step. -> (kp with undistorted xy,
+    ur, depth)."""
+    (kp_l, pyr_l), (kp_r, pyr_r) = extractor.extract_pair_with_pyramid(gl, gr)
+    ur, depth = match_stereo(kp_l, kp_r, pyr_l, pyr_r, cam, extractor.config.scale_factor,
+                             level_budgets=extractor.level_budgets)
+    return kp_l.replace(xy=cam.undistort_points(kp_l.xy)), ur, depth
+
+
+def build_frame_stereo(
+    frame_id: int,
+    timestamp: float,
+    gray_left,
+    gray_right,
+    extractor: ORBExtractor,
+    cam: PinholeCamera,
+) -> Frame:
+    """Stereo frame on the extractor's device; images may be numpy arrays or
+    tensors."""
+    dev = extractor.device
+    kp, ur, depth = _stereo_build(
+        extractor, cam,
+        torch.as_tensor(gray_left, dtype=torch.float32).to(dev),
+        torch.as_tensor(gray_right, dtype=torch.float32).to(dev))
     n = kp.n
     return Frame(
         frame_id=frame_id,

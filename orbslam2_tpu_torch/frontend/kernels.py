@@ -453,15 +453,19 @@ def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
                      pt_min, pt_max) -> FusedFrameOut:
     """The fused whole-frame step for the sensor's image tuple: frame build
     followed by `_fused_track_core`. `sensor_images` is ``("rgbd", (gray,
-    depth))``; stereo and monocular builds are not ported yet."""
+    depth))`` or ``("stereo", (left, right))``; the monocular build is not
+    ported yet."""
     from orbslam2_tpu_torch.frontend import frame as frame_mod
 
     kind, imgs = sensor_images
-    if kind != "rgbd":
+    if kind == "rgbd":
+        kp, ur, depth = frame_mod._rgbd_build(extractor, cam, *imgs)
+    elif kind == "stereo":
+        kp, ur, depth = frame_mod._stereo_build(extractor, cam, *imgs)
+    else:
         raise NotImplementedError(
             f"fused frame step for sensor '{kind}' is not ported yet "
-            "(ROADMAP Queue 1: stereo, mono)")
-    kp, ur, depth = frame_mod._rgbd_build(extractor, cam, *imgs)
+            "(ROADMAP Queue 1: mono)")
     return _fused_track_core(
         kp, ur, depth, tcw_pred, last_kp, last_pid, local_ids, local_sel,
         radius_mult, pt_pos, pt_desc, pt_valid, pt_normal, pt_min, pt_max,

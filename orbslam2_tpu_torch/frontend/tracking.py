@@ -1,4 +1,4 @@
-"""Tracking front-end: per-frame pose estimation state machine (RGB-D).
+"""Tracking front-end: per-frame pose estimation state machine (RGB-D, stereo).
 
 Counterpart of ``orbslam2_tpu/frontend/tracking.py``. The structure mirrors
 the reference's Tracking::Track: initialization -> motion-model /
@@ -6,7 +6,8 @@ reference-keyframe tracking -> local-map tracking -> keyframe decision; every
 per-point loop is a batched device step (frontend/kernels.py) and the map is
 a flat array store (slammap/mapstate.py).
 
-What this port covers so far: RGB-D initialization from depth, the classic
+What this port covers so far: RGB-D and stereo frames (depth from the
+depth image, or from left-right matching), initialization from depth, the classic
 two-step path, the synchronous fused whole-frame path, keyframe insertion
 with close points spawned from depth, local mapping and (with a vocabulary)
 loop closing of every keyframe, inline or on the mapping worker's thread,
@@ -22,8 +23,8 @@ before a mid-flight map change are validated on apply: erased or re-used
 point slots are dropped, and a frame staged before a pose correction is
 dispatched again.
 
-Stereo, monocular, localization mode, the pipelined and batched fetch and
-the host-staged local map are rejected with NotImplementedError (see
+Monocular, localization mode, the pipelined and batched fetch and the
+host-staged local map are rejected with NotImplementedError (see
 ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
@@ -202,8 +203,9 @@ class Tracker:
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> Optional[np.ndarray]:
         return self._track_images("rgbd", (gray, depth), timestamp)
 
-    def track_stereo(self, left, right, timestamp: float):
-        raise NotImplementedError("stereo is not ported yet (ROADMAP.md, Queue 1)")
+    def track_stereo(self, left: np.ndarray, right: np.ndarray,
+                     timestamp: float) -> Optional[np.ndarray]:
+        return self._track_images("stereo", (left, right), timestamp)
 
     def track_mono(self, gray, timestamp: float):
         raise NotImplementedError("mono is not ported yet (ROADMAP.md, Queue 1)")
@@ -211,9 +213,14 @@ class Tracker:
     # ------------------------------------------------------------------
     def _build_frame(self, kind: str, imgs, timestamp: float) -> frame_mod.Frame:
         with self.stats.stage("frame_build"):
-            fr = frame_mod.build_frame_rgbd(
-                self.frame_counter, timestamp, imgs[0], imgs[1],
-                self.extractor, self.cam)
+            if kind == "rgbd":
+                fr = frame_mod.build_frame_rgbd(
+                    self.frame_counter, timestamp, imgs[0], imgs[1],
+                    self.extractor, self.cam)
+            else:
+                fr = frame_mod.build_frame_stereo(
+                    self.frame_counter, timestamp, imgs[0], imgs[1],
+                    self.extractor, self.cam)
         self.frame_counter += 1
         return fr
 

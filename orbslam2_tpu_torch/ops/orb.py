@@ -271,6 +271,36 @@ class ORBExtractor:
         all levels then come from one call of the fused kernel. ``octave`` and
         ``size`` of the result are the extractor's own constant tensors,
         shared by every frame: read them, do not write to them."""
+        levels = self._levels(image)
+        angle, desc = cuda_orb.fused_orient_describe_levels(
+            *levels[:4], self.pattern_t, self.level_budgets)
+        return self._keypoints(levels, angle, desc), tuple(levels[1])
+
+    def extract_pair_with_pyramid(self, left: torch.Tensor, right: torch.Tensor):
+        """Both images of a stereo pair, as two ``extract_with_pyramid``
+        calls would give them, with the orientation and descriptors of both
+        images' levels from one call of the fused kernel (its level table
+        holds 16 levels; with more than 8 levels an image's levels are split
+        into tables of at most 16). -> ((kp_l, pyr_l), (kp_r, pyr_r))."""
+        per_image = [self._levels(left), self._levels(right)]
+        both = [sum((list(lv[i]) for lv in per_image), []) for i in range(4)]
+        budgets = list(self.level_budgets) * 2
+        angles, descs = [], []
+        for lo in range(0, len(budgets), cuda_orb.MAX_LEVELS):
+            hi = lo + cuda_orb.MAX_LEVELS
+            angle, desc = cuda_orb.fused_orient_describe_levels(
+                *(field[lo:hi] for field in both), self.pattern_t, budgets[lo:hi])
+            angles.append(angle)
+            descs.append(desc)
+        angle, desc = torch.cat(angles), torch.cat(descs)
+        n = self.n_total
+        return tuple((self._keypoints(lv, angle[i * n:(i + 1) * n], desc[i * n:(i + 1) * n]),
+                      tuple(lv[1])) for i, lv in enumerate(per_image))
+
+    def _levels(self, image: torch.Tensor):
+        """The level loop of one image: pyramid, blur, FAST, NMS, cell and
+        level selection. -> (raws, blurred, ys, xs, scores), one entry per
+        level."""
         raws, pyramid, ys, xs, scores = [], [], [], [], []
         img = image.contiguous()
         for level in range(self.config.n_levels):
@@ -283,12 +313,14 @@ class ORBExtractor:
             ys.append(y)
             xs.append(x)
             scores.append(sel_score)
+        return raws, pyramid, ys, xs, scores
 
-        angle, desc = cuda_orb.fused_orient_describe_levels(
-            raws, pyramid, ys, xs, self.pattern_t, self.level_budgets)
-
-        # the other fields, frame-wide: a level with fewer candidates than
-        # its budget is padded up to it (coordinates 0, score -inf)
+    def _keypoints(self, levels, angle: torch.Tensor, desc: torch.Tensor) -> Keypoints:
+        """The frame-wide Keypoints of one image's levels and its kernel
+        outputs; a level with fewer candidates than its budget is padded up
+        to it (coordinates 0, score -inf)."""
+        _, _, ys, xs, scores = levels
+        ys, xs, scores = list(ys), list(xs), list(scores)
         for level, budget in enumerate(self.level_budgets):
             pad = budget - ys[level].shape[0]
             if pad > 0:
@@ -299,12 +331,11 @@ class ORBExtractor:
         valid = torch.isfinite(score)
         xy = torch.stack([torch.cat(xs).to(torch.float32),
                           torch.cat(ys).to(torch.float32)], dim=-1)
-        kp = Keypoints(
+        return Keypoints(
             xy=xy * self._slot_scale[:, None],
             response=torch.where(valid, score, torch.zeros_like(score)),
             angle=angle, octave=self._slot_octave, size=self._slot_size,
             desc=desc, valid=valid)
-        return kp, tuple(pyramid)
 
     # ------------------------------------------------------------------
     def _select_level(self, img: torch.Tensor, level: int):

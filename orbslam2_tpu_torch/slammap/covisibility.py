@@ -1,9 +1,11 @@
 """Covisibility graph, spanning tree, and local-map selection.
 
-Own copy of ``orbslam2_tpu/slammap/covisibility.py`` (numpy branch; the
-native C++ engine is not ported yet). The whole graph is one weight matrix
-W = incidence @ incidence.T over the observation incidence, and every query
-is a masked argsort.
+Own copy of ``orbslam2_tpu/slammap/covisibility.py``. The whole graph is one
+[K, K] weight matrix, counted by the native map-graph engine
+(``slammap/native.py``) from the observation arrays; every query is a masked
+argsort. The numpy bodies stay as the plain versions (``weight_matrix_plain``
+= incidence @ incidence.T, ``frame_share_plain``) that the tests hold the
+engine against.
 
 Thresholds mirrored from the reference:
 - covisibility edge if >= 15 shared points, else keep only the single best
@@ -17,19 +19,35 @@ from typing import List, Tuple
 
 import numpy as np
 
+from orbslam2_tpu_torch.slammap import native
+
 COVIS_THRESHOLD = 15
 ESSENTIAL_THRESHOLD = 100
 LOCAL_MAP_MAX_KF = 80
 
 
 def weight_matrix(m) -> np.ndarray:
-    """[K, K] int32 covisibility weights (shared map points), zero diagonal.
+    """[K, K] int32 covisibility weights (shared map points), zero diagonal,
+    by the native engine: one pass over the observations, where the plain
+    version builds a [K, P] incidence and multiplies it."""
+    return native.covis_weights(m.kf_pt, m.kf_valid, m.pt_valid)
+
+
+def weight_matrix_plain(m) -> np.ndarray:
+    """Plain numpy version of ``weight_matrix``: incidence @ incidence.T,
+    over the columns of the points that valid keyframes observe (a column
+    of zeros adds nothing), so that it stays affordable at full capacity.
 
     The product is taken in float32, where numpy calls BLAS; numpy's
-    integer product has no BLAS path and is many times slower at map scale
-    (64 keyframes x 16384 points). It is exact: a weight counts points shared
-    with one keyframe, at most its feature count, far below 2**24."""
-    inc = m.incidence().astype(np.float32)
+    integer product has no BLAS path and is many times slower. It is exact:
+    a weight counts points shared with one keyframe, at most its feature
+    count, far below 2**24."""
+    kk, slots = np.nonzero((m.kf_pt >= 0) & m.kf_valid[:, None])
+    pids = m.kf_pt[kk, slots]
+    keep = m.pt_valid[pids]
+    cols, col = np.unique(pids[keep], return_inverse=True)
+    inc = np.zeros((m.cap.max_keyframes, len(cols)), np.float32)
+    inc[kk[keep], col] = 1.0
     w = (inc @ inc.T).astype(np.int32)
     np.fill_diagonal(w, 0)
     return w
@@ -79,13 +97,10 @@ def local_keyframes(m, frame_pt_ids: np.ndarray, w: np.ndarray) -> Tuple[np.ndar
     pts = frame_pt_ids[frame_pt_ids >= 0]
     if len(pts) == 0:
         return np.array([], np.int64), -1
-    # O(K*N) membership lookup
-    in_frame = np.zeros(m.cap.max_points, bool)
-    in_frame[pts] = True
-    kf_pt = m.kf_pt
-    share = (in_frame[np.maximum(kf_pt, 0)] & (kf_pt >= 0)).sum(axis=1)
-    share[~m.kf_valid] = 0
-    share = share.astype(np.int64)
+    # only the frame's own points' observations, through the cached index
+    offsets, obs_kf, _ = m.obs_index()
+    share = native.share_from_index(offsets, obs_kf, pts,
+                                    m.cap.max_keyframes).astype(np.int64)
     seeds = np.where(share > 0)[0]
     if len(seeds) == 0:
         return np.array([], np.int64), -1
@@ -115,6 +130,18 @@ def local_keyframes(m, frame_pt_ids: np.ndarray, w: np.ndarray) -> Tuple[np.ndar
             local.append(int(par))
             in_local.add(int(par))
     return np.array(local[:LOCAL_MAP_MAX_KF], np.int64), ref_kf
+
+
+def frame_share_plain(m, pts: np.ndarray) -> np.ndarray:
+    """Plain numpy version of the share ``local_keyframes`` takes from the
+    native index: [K] int64, per valid keyframe the observations of the
+    points ``pts`` (an O(K*N) scan; a point listed twice counts twice)."""
+    in_frame = np.zeros(m.cap.max_points, np.int64)
+    np.add.at(in_frame, np.asarray(pts, np.int64), 1)
+    kf_pt = m.kf_pt
+    share = np.where(kf_pt >= 0, in_frame[np.maximum(kf_pt, 0)], 0).sum(axis=1)
+    share[~m.kf_valid] = 0
+    return share
 
 
 def local_points(m, local_kfs: np.ndarray) -> np.ndarray:

@@ -1,8 +1,9 @@
 """Global map state: fixed-capacity structure-of-arrays with validity masks.
 
-Own copy of ``orbslam2_tpu/slammap/mapstate.py`` (numpy; the native C++
-engine behind some of its queries is not ported yet, so every query takes
-the numpy branch). It replaces the reference's pointer-graph map
+Own copy of ``orbslam2_tpu/slammap/mapstate.py`` (numpy; its observation
+index, observation counts and per-point statistics go through the native
+map-graph engine, ``slammap/native.py``, whose numpy plain versions stay
+beside them). It replaces the reference's pointer-graph map
 (Map/KeyFrame/MapPoint) and its mutex protocol with a flat array store:
 
 - keyframe slot k <-> reference KeyFrame object; per-KF keypoint arrays are
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from orbslam2_tpu_torch.ops.orb import DESC_WORDS
+from orbslam2_tpu_torch.slammap import native
 
 _DIRTY_GEN = itertools.count(1)
 
@@ -315,16 +317,21 @@ class MapState:
         if self._obs_index_cache is not None and \
                 self._obs_index_cache[0] == self.obs_gen:
             return self._obs_index_cache[1]
+        idx = native.invert_obs_slots(self.kf_pt, self.kf_valid,
+                                      self.cap.max_points)
+        self._obs_index_cache = (self.obs_gen, idx)
+        return idx
+
+    def _obs_index_plain(self):
+        """Plain numpy version of the native index ``obs_index`` caches."""
         ks, slots = np.nonzero((self.kf_pt >= 0) & self.kf_valid[:, None])
         pids = self.kf_pt[ks, slots]
         order = np.argsort(pids, kind="stable")
         counts = np.bincount(pids, minlength=self.cap.max_points)
         offsets = np.zeros(self.cap.max_points + 1, np.int32)
         np.cumsum(counts, out=offsets[1:])
-        idx = (offsets, ks[order].astype(np.int32),
-               slots[order].astype(np.int32))
-        self._obs_index_cache = (self.obs_gen, idx)
-        return idx
+        return (offsets, ks[order].astype(np.int32),
+                slots[order].astype(np.int32))
 
     def gather_point_obs(self, pids: np.ndarray):
         """All observations of the given points from the CSR index:
@@ -344,6 +351,11 @@ class MapState:
         return seg_id, obs_kf[flat], obs_slot[flat]
 
     def _point_obs_count_impl(self) -> np.ndarray:
+        return native.point_obs_count(self.kf_pt, self.kf_valid,
+                                      self.cap.max_points).astype(np.int64)
+
+    def _point_obs_count_plain(self) -> np.ndarray:
+        """Plain numpy version of ``_point_obs_count_impl``."""
         p = self.cap.max_points
         counts = np.zeros(p + 1, np.int64)
         obs = self.kf_pt[self.kf_valid]
@@ -500,11 +512,11 @@ class MapState:
                                            n_levels: int) -> None:
         """Batch re-compute representative descriptor (min median Hamming,
         MapPoint::ComputeDistinctiveDescriptors) and viewing normal / scale
-        band (UpdateNormalAndDepth)."""
+        band (UpdateNormalAndDepth) by the native engine;
+        ``point_stats.update_points`` is its plain version."""
         pts = np.asarray(pts, np.int64)
         self.mark_pts_dirty(pts)
-        from orbslam2_tpu_torch.slammap import point_stats
-        point_stats.update_points(self, pts, scale_factor, n_levels)
+        native.update_point_stats(self, pts, scale_factor, n_levels)
 
     def increase_visible(self, pts: np.ndarray) -> None:
         self.pt_visible[pts] += 1

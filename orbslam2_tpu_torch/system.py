@@ -9,9 +9,12 @@ track call, reset, shutdown, map save/load and the trajectory savers.
 Every keyframe is mapped (triangulation, fusion, local BA, culling) and,
 with a vocabulary, goes through loop detection and correction, on the
 worker's thread or inline at insertion; a lost tracker relocalizes through
-the keyframe database. Stereo, monocular and localization mode are not
-ported yet: a request for any of them raises NotImplementedError naming the
-ROADMAP item; nothing is ignored silently.
+the keyframe database. RGB-D (``track_rgbd``) and stereo (``track_stereo``,
+rectified pairs) are ported; the loop closer solves with fixed scale for
+both. Still refused with a NotImplementedError naming the ROADMAP item: the
+monocular sensor, localization mode, and the pipelined or batched fetch
+(``SLAMConfig.pipelined_fetch=True``, ``fetch_batch > 1``); nothing is
+ignored silently.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ class SLAMSystem:
         a place.vocabulary.Vocabulary (e.g. place.pretrained's), or None to
         run without place recognition (no loop closing; relocalization then
         tries the reference keyframe only)."""
-        if sensor != Sensor.RGBD:
+        if sensor == Sensor.MONOCULAR:
             raise _not_ported(f"sensor {sensor.name}")
         self.cfg = config
         self.sensor = sensor
@@ -93,13 +96,20 @@ class SLAMSystem:
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float
                    ) -> Optional[np.ndarray]:
         """-> Tcw or None if tracking failed (System::TrackRGBD)."""
+        if self.sensor != Sensor.RGBD:
+            raise ValueError(f"track_rgbd on a {self.sensor.name} system")
         return self.tracker.track_rgbd(gray, depth, timestamp)
 
     def track_monocular(self, gray, timestamp: float):
         raise _not_ported("sensor MONOCULAR")
 
-    def track_stereo(self, left, right, timestamp: float):
-        raise _not_ported("sensor STEREO")
+    def track_stereo(self, left: np.ndarray, right: np.ndarray, timestamp: float
+                     ) -> Optional[np.ndarray]:
+        """Rectified pair -> Tcw or None if tracking failed
+        (System::TrackStereo)."""
+        if self.sensor != Sensor.STEREO:
+            raise ValueError(f"track_stereo on a {self.sensor.name} system")
+        return self.tracker.track_stereo(left, right, timestamp)
 
     # ------------------------------------------------------------------
     def activate_localization_mode(self) -> None:

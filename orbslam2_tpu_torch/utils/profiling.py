@@ -10,7 +10,8 @@ ends in a fetch or a synchronisation.
 ``event_ms``, ``kernel_device_ms`` and ``queued_ms`` time work on a CUDA
 device (``torch`` is imported inside them). ``event_ms`` is paced by the host
 wherever the host sends work more slowly than the card finishes it; the
-other two give the card's own time.
+other two give the card's own time; ``kernel_device_ms`` can flush the L2
+cache before every call.
 """
 from __future__ import annotations
 
@@ -91,22 +92,34 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int, kernel_name: str, tries: int = 3):
+L2_FLUSH_BYTES = 256 << 20   # over five times the H100's 50 MB L2
+
+
+def kernel_device_ms(fn, reps: int, kernel_name: str, tries: int = 3,
+                     flush_l2: bool = False):
     """Mean device milliseconds of one kernel whose name contains
     ``kernel_name``, over ``reps`` calls of ``fn``: its durations as
     ``torch.profiler`` traced them on the card. -> (ms per kernel, kernels
     traced); (None, 0) where no trace of ``tries`` held device time for the
     name. The trace may drop events, so the caller multiplies by the launches
-    it knows a call makes rather than trusting the count."""
+    it knows a call makes rather than trusting the count.
+
+    With ``flush_l2`` every call follows a write of ``L2_FLUSH_BYTES``, so
+    that the kernel finds its inputs in device memory and not in L2 (the
+    write's own kernel has another name and is not counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    flush = torch.empty(L2_FLUSH_BYTES // 4 if flush_l2 else 0, dtype=torch.float32,
+                        device="cuda")
     for _ in range(3):
         fn()
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                if flush_l2:
+                    flush.zero_()
                 fn()
             torch.cuda.synchronize()
         total_us, count = 0.0, 0

@@ -140,6 +140,8 @@ def test_search_by_descriptor_matches_jax(staged):
 
 
 def test_fused_frame_step_rejects_other_sensors(staged):
-    with pytest.raises(NotImplementedError, match="stereo"):
-        tk.fused_frame_step(("stereo", (None, None)), None, TCAM, SF, NL,
+    """RGB-D and stereo are ported (tests/test_torch_stereo.py holds the
+    stereo step); the monocular build is not."""
+    with pytest.raises(NotImplementedError, match="mono"):
+        tk.fused_frame_step(("mono", (None,)), None, TCAM, SF, NL,
                             *[None] * 12)

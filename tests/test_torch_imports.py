@@ -79,7 +79,7 @@ def test_every_module_is_listed():
             "geometry.sim3", "geometry.sim3_np", "place.vocabulary",
             "place.pretrained", "slammap.keyframe_db", "solvers.horn",
             "solvers.epnp", "backend.sim3_opt", "backend.pose_graph",
-            "frontend.loop_closing"}
+            "frontend.loop_closing", "ops.stereo", "slammap.native"}
     have = {m[len("orbslam2_tpu_torch."):] for m in MODULES} | {"__init__"}
     assert want <= have, want - have
 
@@ -140,6 +140,10 @@ def test_default_device_raises_without_a_gpu():
     system = SLAMSystem(cfg, Sensor.RGBD, vocabulary=voc, device="cpu")
     assert system.loop_closer.device.type == "cpu" and system.kfdb is not None
     assert system.local_mapper.kfdb is system.kfdb
+    # stereo: the same entry point and the same default
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SLAMSystem(cfg, Sensor.STEREO, vocabulary=voc)
+    assert SLAMSystem(cfg, Sensor.STEREO, vocabulary=voc, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_gpu():

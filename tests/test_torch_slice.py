@@ -167,21 +167,30 @@ def test_unported_configuration_is_refused(kwargs, word):
 
 def test_unported_sensors_and_modes_are_refused():
     cfg = ttracking.SLAMConfig(cam=TCamera(**CAM_KW), **CFG_KW)
-    for sensor in (Sensor.STEREO, Sensor.MONOCULAR):
-        with pytest.raises(NotImplementedError, match=sensor.name):
-            SLAMSystem(cfg, sensor, device="cpu")
-    # place recognition is ported: a vocabulary builds the database and the
-    # loop closer
-    with_voc = SLAMSystem(cfg, Sensor.RGBD, vocabulary=get_default_vocabulary(),
-                          device="cpu")
-    assert with_voc.kfdb is not None and with_voc.loop_closer is not None
+    with pytest.raises(NotImplementedError, match="MONOCULAR"):
+        SLAMSystem(cfg, Sensor.MONOCULAR, device="cpu")
+    # place recognition and stereo are ported: a vocabulary builds the
+    # database and the loop closer, with fixed scale for stereo
+    systems = [SLAMSystem(cfg, sensor, vocabulary=get_default_vocabulary(), device="cpu")
+               for sensor in (Sensor.RGBD, Sensor.STEREO)]
     system = SLAMSystem(cfg, Sensor.RGBD, device="cpu")
-    with pytest.raises(NotImplementedError):
-        system.activate_localization_mode()
-    with pytest.raises(NotImplementedError):
-        system.track_stereo(None, None, 0.0)
-    with pytest.raises(NotImplementedError):
-        system.track_monocular(None, 0.0)
+    systems.append(system)
+    try:
+        for with_voc in systems[:2]:
+            assert with_voc.kfdb is not None and with_voc.loop_closer is not None
+            assert with_voc.loop_closer.cfg.fix_scale
+        with pytest.raises(NotImplementedError):
+            system.activate_localization_mode()
+        with pytest.raises(NotImplementedError):
+            system.track_monocular(None, 0.0)
+        # each sensor takes its own images only
+        with pytest.raises(ValueError, match="RGBD"):
+            system.track_stereo(None, None, 0.0)
+        with pytest.raises(ValueError, match="STEREO"):
+            systems[1].track_rgbd(None, None, 0.0)
+    finally:
+        for s in systems:
+            s.shutdown()
 
 
 def test_config_defaults_are_the_jax_package_defaults():
