@@ -91,12 +91,45 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             one-launch describe of both images' 16 levels against its plain
             version, timed as in phase 3 beside one image's 8 levels; every
             native map-graph binding against its numpy plain version on
-            phase 12's final map, with both times
+            phase 12's final map, with both times. The 16-level launch must
+            give the plain version's descriptors bit for bit (0 differing
+            slots), its angles within phase 3's figure
+14. defaults the slice's main path: SLAMConfig's defaults (pipelined_fetch,
+            fetch_batch 1, the mapping worker) at phase 5's geometry and
+            capacity, phase 5's 60 frames back to back; the same with
+            fetch_batch 4; then SLAMSystem.track_stereo on the first 60
+            frames of phase 12's drive with phase 12's settings and the
+            fetch at its defaults. Tracked frames come from the lost mask.
+            Prints ATE, ms per frame (median, p95), frames tracked again and
+            the kernel's launches; fails on a frame lost after
+            initialisation, an RGB-D ATE above 0.10 m, or stereo tracking
+            that starts at frame 20 or later
+15. localization  tests/test_localization_vo.py's scenario (6 frames mapped,
+            24 in localization mode, shuttle in the cluttered world, seed 9)
+            at 640x480 / 2000 / 8, held to what the JAX package does there
+            on the CPU (frames 27-29 lost, tests/reference_full_width.py), a
+            frozen map and an RPE over the tracked frames under 0.05 m, with
+            change_calibration to the same camera before frame 12 and that
+            frame tracked; at the test's own 320x240 / 800 / 4, held to a
+            frozen map, 22 of 24 frames tracked and an RPE under 0.05 m, then
+            change_calibration and the next frame tracked; phase 9's map
+            through save_map and load_map into a new system with the
+            vocabulary, in localization mode, relocalizing a mapped frame
+            through the keyframe database within 0.1 m; global_bundle_adjust
+            on phase 14's final map with the first keyframe unchanged within
+            1e-6, its time and the ATE before and after
+16. backlog the mapping worker made to fall behind (a keyframe every second
+            frame, each local-BA solve held 0.5 s longer, the vocabulary,
+            frames back to back) and its four paths counted one by one: the
+            correction_gen drop, interrupt_ba, the backlog skip and the
+            stage-conflict rerun; a path the drive did not reach is provoked
+            on its last keyframe as its CPU test provokes it; fails unless
+            each ran
 
 Then one JSON line {"kernels": [...]} (phase 3's numbers and phase 5's
 launches at its top level, phase 13's 16-level launch and phase 12's launches
-under "stereo_16_levels"), the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}.
+under "stereo_16_levels", every drive's launches under "launches_by_path"),
+the nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -107,6 +140,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,7 +153,7 @@ from orbslam2_tpu_torch.frontend import tracking as tracking_mod
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
 from orbslam2_tpu_torch.frontend.triangulation import triangulate_neighbors
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
-from orbslam2_tpu_torch.io.evaluate import ate_rmse
+from orbslam2_tpu_torch.io.evaluate import ate_rmse, rpe
 from orbslam2_tpu_torch.io.synthetic import SyntheticSequence
 from orbslam2_tpu_torch.ops import cuda_orb, orb, stereo
 from orbslam2_tpu_torch.place.pretrained import get_large_vocabulary
@@ -130,12 +164,12 @@ from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 from orbslam2_tpu_torch.utils.profiling import (device_activity, event_ms, kernel_device_ms,
                                                 queued_ms)
 
-# angle and descriptor tolerances between the kernel and its plain version:
-# both round the same float32 arithmetic, but sum the 709 disc pixels in
-# another order, so an angle differs by float32 noise and a sample offset
-# that lands within that noise of a half-integer may round the other way
-# (a few bits of 256). These are the JAX package's own limits between its
-# twin paths.
+# angle and descriptor tolerances between the kernel and its plain version
+# (phase 3): both sum the disc in one stated order (csrc/orient_describe.cu)
+# and agree bit for bit on the card, but the limits stay the JAX package's
+# own between its twin paths, which a sum in another order (an angle off by
+# float32 noise, a sample offset rounded the other way) would still meet.
+# Phase 13 holds the 16-level launch to identical descriptors.
 ANGLE_TOL_RAD = 1e-3
 HAMMING_MEDIAN_MAX = 4
 HAMMING_MAX = 40
@@ -432,12 +466,15 @@ def describe_times(frame_args, beside, beside_kernels, beside_name, beside_what)
             "roofline_share": bound_ms / device_ms, "library_ms": None}
 
 
-def drive(name, track, tracker, frames, seq, pace=None) -> dict:
+def drive(name, track, tracker, frames, seq, pace=None, pipelined=False) -> dict:
     """Drive `track` over `frames`, back to back or after `pace()` (called
     before each frame, outside its time), with the kernel's launch count set
     to 0 just before and read just after, and check the drive: every frame
-    after initialisation tracked, one launch a frame. -> the drive's
-    measured entries."""
+    after initialisation tracked, one launch a frame (and one for each frame
+    built again or tracked again). With `pipelined` the frames in flight are
+    applied after the last one, inside the timed window, and tracked frames
+    are counted from the tracker's lost mask, since a pipelined frame
+    returns its prediction. -> the drive's measured entries."""
     n_frames = len(frames)
     cuda_orb.fused_orient_describe.launches = 0
     frame_ms = []
@@ -454,21 +491,40 @@ def drive(name, track, tracker, frames, seq, pace=None) -> dict:
                 torch.cuda.synchronize()
                 t_steady = time.perf_counter()
             before = cuda_orb.fused_orient_describe.launches
-            rebuilt = tracker.rebuilt_frames
+            again = tracker.rebuilt_frames + tracker.retracked_frames
             t_frame = time.perf_counter()
             tcw = track(gray, depth, i / seq.fps)
             frame_ms.append((time.perf_counter() - t_frame) * 1e3)  # ends in a fetch
             built = cuda_orb.fused_orient_describe.launches - before
-            # a frame whose map a loop correction rebased mid-step is built again
-            expected = 1 + tracker.rebuilt_frames - rebuilt
+            # a frame whose map a loop correction rebased mid-step is built
+            # again, and so is a pipelined frame whose chain was discarded
+            expected = 1 + tracker.rebuilt_frames + tracker.retracked_frames - again
             if built != expected:
                 fail(f"{name}: frame {i}: {built} kernel launches, expected {expected}")
+            if pipelined:
+                continue
             if tcw is not None:
                 tracked += 1
                 if first_ok is None:
                     first_ok = i
             elif first_ok is not None:
                 fail(f"{name}: frame {i} lost after initialisation at frame {first_ok}")
+        if pipelined:
+            before = cuda_orb.fused_orient_describe.launches
+            again = tracker.rebuilt_frames + tracker.retracked_frames
+            tracker.flush_frames()
+            built = cuda_orb.fused_orient_describe.launches - before
+            if built != tracker.rebuilt_frames + tracker.retracked_frames - again:
+                fail(f"{name}: the flush launched the kernel {built} times")
+            lost = tracker.trajectory_lost_mask()[-n_frames:]
+            if len(lost) != n_frames:
+                fail(f"{name}: {len(lost)} trajectory entries for {n_frames} frames")
+            ok_at = np.flatnonzero(~lost)
+            first_ok = int(ok_at[0]) if len(ok_at) else None
+            tracked = len(ok_at)
+            if first_ok is not None and lost[first_ok:].any():
+                fail(f"{name}: frames {np.flatnonzero(lost[first_ok:]) + first_ok} lost "
+                     f"after initialisation at frame {first_ok}")
         torch.cuda.synchronize()
         n_steady = n_frames - WARM_FRAMES
         ms_per_frame = (time.perf_counter() - t_steady - waited) / n_steady * 1e3
@@ -489,11 +545,12 @@ def drive(name, track, tracker, frames, seq, pace=None) -> dict:
         fail(f"{name}: only {fused_frames} frames went through the fused step")
     if any(t.device.type != "cuda" for t in on_card):
         fail(f"{name}: a tensor of the fused step is not on the card")
-    if launches != n_frames + tracker.rebuilt_frames:
+    if launches != n_frames + tracker.rebuilt_frames + tracker.retracked_frames:
         fail(f"{name}: {launches} launches, expected {n_frames} frames + "
-             f"{tracker.rebuilt_frames} rebuilt")
+             f"{tracker.rebuilt_frames} rebuilt + {tracker.retracked_frames} tracked again")
     return dict(launches=launches, first_ok=first_ok, tracked=tracked,
                 fused_frames=fused_frames, rebuilt_frames=tracker.rebuilt_frames,
+                retracked_frames=tracker.retracked_frames,
                 revalidated_frames=tracker.revalidated_frames, ms_per_frame=ms_per_frame,
                 median_ms=float(np.median(steady)),
                 p95_ms=float(np.percentile(steady, 95)),
@@ -1152,6 +1209,7 @@ STEREO_TRAJECTORY = "circuit2"
 STEREO_INIT_BY = 20       # tracking must start before this frame
 STEREO_ATE_MAX_M = 0.25   # the CPU twin's limit (tests/test_e2e_kitti_scale.py)
 KITTI_MAX_POINTS = 150_000
+KITTI_MIN_INIT = 400      # bench_kitti_full's stereo initialisation gate
 # match_stereo card vs CPU on the same keypoints and pyramids: a SAD summed
 # in another order may flip its argmin on a near-tie, so a few keypoints
 # may be matched on one side only; uR agrees to 1e-3 px on the rest
@@ -1177,8 +1235,8 @@ def drive_stereo_kitti():
     cam = PinholeCamera(**KITTI_CAM)
     cfg = SLAMConfig(cam=cam, orb=orb.ORBConfig(**KITTI_ORB), th_depth=cam.bf / cam.fx * 40.0,
                      max_keyframes=1536, max_points=KITTI_MAX_POINTS, local_point_cap=4096,
-                     max_frames_between_kf=10, min_init_features=400, async_mapping=True,
-                     pipelined_fetch=False, profile_stages=True)
+                     max_frames_between_kf=10, min_init_features=KITTI_MIN_INIT,
+                     async_mapping=True, pipelined_fetch=False, profile_stages=True)
     print(f"[stereo] SLAMSystem.track_stereo at KITTI geometry (1241x376, 2000 features, "
           f"8 levels) and capacity ({cfg.max_keyframes} keyframes, {cfg.max_points} points), "
           f"10 000-word vocabulary, mapping worker, loop consistency 2; {STEREO_TRAJECTORY} "
@@ -1349,9 +1407,19 @@ def check_stereo_parts(system, seq, frames) -> dict:
     budgets16 = list(budgets) * 2
     args16 = (*both_lv, ex.pattern_t, budgets16)
     args8 = (*levels[0][:4], ex.pattern_t, budgets)
-    stats = compare(f"both images, {len(budgets16)} levels, one launch",
-                    cuda_orb.fused_orient_describe_levels(*args16),
-                    cuda_orb.fused_orient_describe_levels_plain(*args16))
+    out16 = cuda_orb.fused_orient_describe_levels(*args16)
+    plain16 = cuda_orb.fused_orient_describe_levels_plain(*args16)
+    stats = compare(f"both images, {len(budgets16)} levels, one launch", out16, plain16)
+    # one order of the float sums in both (csrc/orient_describe.cu): the
+    # descriptors are identical, and the angles within phase 3's figure
+    n_differ = int((hamming_rows(out16[1], plain16[1]) > 0).sum())
+    print(f"  differing descriptors {n_differ} of {out16[1].shape[0]} slots (must be 0), "
+          f"max angle difference {stats['max_angle_err']:.2e} rad (limit "
+          f"{STEREO16_ANGLE_TOL_RAD})", flush=True)
+    if n_differ:
+        fail(f"stereo parts: {n_differ} descriptors differ from the plain version")
+    if stats["max_angle_err"] > STEREO16_ANGLE_TOL_RAD:
+        fail(f"stereo parts: angles differ by {stats['max_angle_err']} rad")
 
     def run8():
         cuda_orb.fused_orient_describe_levels(*args8)
@@ -1360,6 +1428,7 @@ def check_stereo_parts(system, seq, frames) -> dict:
           flush=True)
     out["describe16"] = dict(
         max_abs_err=stats["max_angle_err"], descriptor_exact_share_min=stats["ham_exact_share"],
+        descriptors_differing=n_differ,
         **describe_times(args16, run8, 1, "one_image_8_levels",
                          "one launch over one image's 8 levels"),
         ms_covers="one stereo frame build: one launch for both images' 16 levels at "
@@ -1423,6 +1492,385 @@ def check_stereo_parts(system, seq, frames) -> dict:
     return out
 
 
+# ---- phases 14 to 16: the default configuration, localization, backlog ----
+N_FRAMES_DEFAULTS_STEREO = 60   # the first frames of phase 12's drive
+STEREO16_ANGLE_TOL_RAD = 8.34e-6   # phase 3's 640x480 figure of PRs 3-5
+LOC_MAPPED = 6            # frames mapped before localization mode (test_localization_vo.py)
+LOC_FRAMES = 24           # frames tracked in localization mode
+LOC_MIN_TRACKED = 22
+LOC_RPE_MAX_M = 0.05
+# at full width the frames the JAX package loses on the CPU
+# (tests/reference_full_width.py), and change_calibration while the map tracks
+LOC_LOST_FULL = (27, 28, 29)
+LOC_CALIB_FULL = LOC_MAPPED + 6
+GAUGE_TOL = 1e-6          # the first keyframe through a global BA
+BACKLOG_FRAMES = 40
+BACKLOG_KF_EVERY = 2
+BACKLOG_BA_DELAY_S = 0.5
+# the four mapping paths a worker that falls behind takes, by their counters
+BACKLOG_PATHS = {"correction_gen drop": "ba_dropped", "interrupt_ba": "ba_interrupted",
+                 "backlog skip": "ba_backlog", "stage-conflict rerun": "conflicts"}
+
+
+def defaults_config(cam, orb_cfg, **kw) -> SLAMConfig:
+    """The slice's main path: SLAMConfig's defaults at phase 5's geometry and
+    capacity (pipelined_fetch on, fetch_batch 1, the mapping worker on)."""
+    return SLAMConfig(cam=cam, orb=orb_cfg, max_points=16384, local_point_cap=4096,
+                      max_keyframes=64, th_depth=6.0, **kw)
+
+
+def drive_defaults_rgbd(name, cfg, frames, seq):
+    """One RGB-D drive with the default configuration, frames back to back as
+    in phase 5; the stage timer is switched on by the script (it times, it
+    configures nothing). -> (entries, system after shutdown)."""
+    print(f"[{name}] SLAMSystem.track_rgbd with SLAMConfig's defaults (pipelined_fetch="
+          f"{cfg.pipelined_fetch}, fetch_batch={cfg.fetch_batch}, mapping worker), "
+          f"{len(frames)} frames back to back, 640x480 / 2000 features / 8 levels",
+          flush=True)
+    system = SLAMSystem(cfg, Sensor.RGBD)
+    tracker = system.tracker
+    tracker.stats.enabled = True
+    d = drive(name, system.track_rgbd, tracker, frames, seq, pipelined=True)
+    if not system.wait_mapping_idle(300):
+        fail(f"{name}: the mapping worker did not become idle within 300 s")
+    ate = check_trajectory(name, tracker, seq, d)
+    waits = tracker.stats.summary().get("fused_dev", {})
+    print(f"  frames tracked again (a discarded chain) {d['retracked_frames']}, built again "
+          f"(a pose correction) {d['rebuilt_frames']}; waits for a fetch: "
+          f"{waits.get('n', 0)}, median {waits.get('median_ms', float('nan')):.3f} ms",
+          flush=True)
+    describe(name, tracker, d, ate, len(frames))   # fails above ATE_MAX_M
+    system.shutdown()
+    return dict(launches=d["launches"], first_ok=d["first_ok"], tracked=d["tracked"],
+                ate_m=ate, ms_per_frame=d["ms_per_frame"], median_ms=d["median_ms"],
+                p95_ms=d["p95_ms"], retracked_frames=d["retracked_frames"],
+                rebuilt_frames=d["rebuilt_frames"], fused_frames=d["fused_frames"],
+                keyframes=int(system.map.n_keyframes()), fetch_wait_ms=waits,
+                sm_clock_mhz_median=float(np.median(d["mhz"]))), system
+
+
+def drive_defaults_stereo(seq, frames):
+    """Phase 14's stereo part: SLAMSystem.track_stereo at phase 12's geometry
+    and capacity, with phase 12's settings (bench_kitti_full's th_depth,
+    keyframe cadence and initialisation gate, 1536 keyframes x 150 000
+    points) and every other field at its default: the pipelined fetch, no
+    vocabulary. The first frames of phase 12's drive, back to back."""
+    cam = seq.cam
+    cfg = SLAMConfig(cam=cam, orb=orb.ORBConfig(**KITTI_ORB), th_depth=cam.bf / cam.fx * 40.0,
+                     max_keyframes=1536, max_points=KITTI_MAX_POINTS, local_point_cap=4096,
+                     max_frames_between_kf=10, min_init_features=KITTI_MIN_INIT)
+    frames = frames[:N_FRAMES_DEFAULTS_STEREO]
+    print(f"[defaults stereo] SLAMSystem.track_stereo with SLAMConfig's defaults at KITTI "
+          f"geometry and capacity, the first {len(frames)} frames of {STEREO_TRAJECTORY}, "
+          f"back to back", flush=True)
+    system = SLAMSystem(cfg, Sensor.STEREO)
+    tracker = system.tracker
+    tracker.stats.enabled = True
+    d = drive("defaults stereo", system.track_stereo, tracker, frames, seq, pipelined=True)
+    if not system.wait_mapping_idle(300):
+        fail("defaults stereo: the mapping worker did not become idle within 300 s")
+    ate = check_trajectory("defaults stereo", tracker, seq, d)   # fails on a lost frame
+    system.shutdown()
+    print(f"  frames tracked {d['tracked']}/{len(frames)} from frame {d['first_ok']}, "
+          f"keyframes {system.map.n_keyframes()}, ATE-RMSE {ate:.4f} m (true scale), "
+          f"median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms, {d['ms_per_frame']:.2f} "
+          f"ms per steady-state frame; kernel launches {d['launches']} ({d['retracked_frames']} "
+          f"frames tracked again, {d['rebuilt_frames']} built again)", flush=True)
+    if d["first_ok"] >= STEREO_INIT_BY:
+        fail(f"defaults stereo: tracking started at frame {d['first_ok']}, not before "
+             f"{STEREO_INIT_BY}")
+    return dict(launches=d["launches"], first_ok=d["first_ok"], tracked=d["tracked"],
+                ate_m=ate, ms_per_frame=d["ms_per_frame"], median_ms=d["median_ms"],
+                p95_ms=d["p95_ms"], retracked_frames=d["retracked_frames"],
+                rebuilt_frames=d["rebuilt_frames"],
+                keyframes=int(system.map.n_keyframes()))
+
+
+def localization_drive(name, cfg, calib_at, lost_expected=None) -> dict:
+    """tests/test_localization_vo.py's scenario through SLAMSystem with
+    `cfg` (no vocabulary, as the test): map the first frames of the shuttle
+    (cluttered world, seed 9), then track on in localization mode into
+    unmapped space on temporal VO points. change_calibration to the same
+    camera comes just before frame `calib_at`, which must be tracked, and the
+    map must stay frozen. Without `lost_expected` the tracked count and the
+    RPE are held to the test's limits; with it, the frames lost must be
+    exactly those and the RPE over the tracked frames within the test's
+    limit."""
+    cam = cfg.cam
+    n_all = LOC_MAPPED + LOC_FRAMES
+    seq = SyntheticSequence(cam, n_frames=60, trajectory="shuttle", seed=9, world="cluttered")
+    frames = [seq.render(i) for i in range(max(n_all, calib_at + 1))]
+    print(f"[{name}] {LOC_MAPPED} frames mapped, then {LOC_FRAMES} in localization mode "
+          f"(shuttle, cluttered world, seed 9, no vocabulary), {cam.width}x{cam.height} / "
+          f"{cfg.orb.n_features} features / {cfg.orb.n_levels} levels; change_calibration "
+          f"before frame {calib_at}", flush=True)
+    system = SLAMSystem(cfg, Sensor.RGBD)
+    tracker = system.tracker
+    cuda_orb.fused_orient_describe.launches = 0
+    for i in range(LOC_MAPPED):
+        system.track_rgbd(*frames[i], i / seq.fps)
+    system.activate_localization_mode()
+    m = system.map
+    frozen = (m.n_points(), m.n_keyframes(), m.pt_valid.copy(), m.kf_valid.copy(),
+              m.pt_pos.copy(), m.kf_pose.copy())
+
+    def calibrate():
+        # the calibration, changed to the same camera, reaches the next frame
+        system.change_calibration(PinholeCamera(**dataclasses.asdict(cam)))
+
+    t0 = time.perf_counter()
+    vo_frames = 0
+    for i in range(LOC_MAPPED, n_all):
+        if i == calib_at:
+            calibrate()
+        system.track_rgbd(*frames[i], i / seq.fps)
+        vo_frames += tracker.mb_vo
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / LOC_FRAMES
+    launches = cuda_orb.fused_orient_describe.launches
+    est = tracker.full_trajectory_twc()[LOC_MAPPED:n_all]
+    lost = tracker.trajectory_lost_mask()[LOC_MAPPED:n_all]
+    tracked = int((~lost).sum())
+    lost_ids = (np.flatnonzero(lost) + LOC_MAPPED).tolist()
+    gt = np.stack([np.linalg.inv(seq.poses[i]) for i in range(LOC_MAPPED, n_all)])
+    t_rpe, r_rpe = rpe(est, gt)
+    t_rpe_tracked = rpe(est[~lost], gt[~lost])[0] if tracked >= 2 else float("nan")
+    unchanged = (m.n_points() == frozen[0] and m.n_keyframes() == frozen[1]
+                 and np.array_equal(m.pt_valid, frozen[2]) and np.array_equal(m.kf_valid, frozen[3])
+                 and np.array_equal(m.pt_pos, frozen[4]) and np.array_equal(m.kf_pose, frozen[5]))
+    if calib_at >= n_all:
+        calibrate()
+        system.track_rgbd(*frames[calib_at], calib_at / seq.fps)
+    calib_ok = not tracker.trajectory_lost_mask()[calib_at]
+    system.shutdown()
+    print(f"  map frozen {unchanged} ({frozen[0]} points, {frozen[1]} keyframes); frames "
+          f"tracked {tracked}/{LOC_FRAMES} (lost: {lost_ids}), {vo_frames} on temporal points "
+          f"only; RPE {t_rpe:.4f} m / {r_rpe:.5f} rad per frame, {t_rpe_tracked:.4f} m over "
+          f"the tracked frames; {ms:.1f} ms a frame; kernel launches {launches} for {n_all} "
+          f"frames; frame {calib_at} after change_calibration tracked: {calib_ok}", flush=True)
+    if not unchanged:
+        fail(f"{name}: the map changed in localization mode")
+    if launches != n_all + tracker.rebuilt_frames + tracker.retracked_frames:
+        fail(f"{name}: {launches} kernel launches for {n_all} frames")
+    if not calib_ok:
+        fail(f"{name}: frame {calib_at}, after change_calibration, was lost")
+    if lost_expected is None:
+        if tracked < LOC_MIN_TRACKED:
+            fail(f"{name}: {tracked}/{LOC_FRAMES} frames tracked (limit {LOC_MIN_TRACKED})")
+        if not t_rpe < LOC_RPE_MAX_M:
+            fail(f"{name}: RPE {t_rpe:.4f} m per frame (limit {LOC_RPE_MAX_M} m)")
+    else:
+        if lost_ids != list(lost_expected):
+            fail(f"{name}: frames {lost_ids} lost, the JAX package loses {list(lost_expected)}")
+        if not t_rpe_tracked < LOC_RPE_MAX_M:
+            fail(f"{name}: RPE {t_rpe_tracked:.4f} m per tracked frame (limit "
+                 f"{LOC_RPE_MAX_M} m)")
+    return dict(tracked=tracked, lost=lost_ids, vo_frames=int(vo_frames), rpe_m=t_rpe,
+                rpe_rad=r_rpe, rpe_tracked_m=t_rpe_tracked, map_frozen=unchanged,
+                ms_per_frame=ms, launches=launches, calibration_frame=calib_at,
+                tracked_after_change_calibration=calib_ok)
+
+
+def check_localization(cam, orb_cfg) -> dict:
+    """Phase 15a. At full width a relocalization in the aliased cluttered
+    world lands metres off late in the drive and frames 27-29 are lost, as
+    the JAX package loses them on the CPU (tests/reference_full_width.py):
+    that drive is held to the reference's outcome (the same frames lost, the
+    map frozen, the RPE over the tracked frames), with change_calibration
+    mid-drive while the map tracks. The test's own limits are held at its
+    geometry (320x240 / 800 / 4), where neither package relocalizes."""
+    full = localization_drive(
+        "localization", defaults_config(cam, orb_cfg, max_frames_between_kf=10,
+                                        min_init_features=300),
+        calib_at=LOC_CALIB_FULL, lost_expected=LOC_LOST_FULL)
+    small = PinholeCamera(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240,
+                          bf=26.0)
+    test = localization_drive(
+        "localization, test geometry",
+        SLAMConfig(cam=small, orb=orb.ORBConfig(n_features=800, n_levels=4), th_depth=4.0,
+                   max_keyframes=64, max_points=8192, local_point_cap=2048,
+                   max_frames_between_kf=10, min_init_features=300),
+        calib_at=LOC_MAPPED + LOC_FRAMES)
+    return {"full_width": full, "test_geometry": test,
+            "launches": full["launches"] + test["launches"]}
+
+
+def check_map_reload(place_system, seq, frames) -> dict:
+    """Phase 15b: phase 9's map through save_map and load_map into a new
+    system with the vocabulary, in localization mode, relocalizes a mapped
+    frame through the keyframe database."""
+    cfg = dataclasses.replace(place_system.cfg, localization_only=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map.npz")
+        place_system.save_map(path)
+        system = SLAMSystem(cfg, Sensor.RGBD, vocabulary=place_system.vocabulary)
+        system.load_map(path)
+    system.activate_localization_mode()
+    calls = []
+    solve = tracking_mod.epnp.epnp_ransac
+
+    def spy(*a, **k):
+        res = solve(*a, **k)
+        calls.append(int(res.n_inliers))
+        return res
+
+    tracking_mod.epnp.epnp_ransac = spy
+    try:
+        tcw = system.track_rgbd(*frames[RELOC_FRAME], N_FRAMES_PLACE / seq.fps)
+    finally:
+        tracking_mod.epnp.epnp_ransac = solve
+    same = (system.map.n_points() == place_system.map.n_points()
+            and np.array_equal(system.map.kf_pose, place_system.map.kf_pose))
+    system.shutdown()
+    if tcw is None:
+        fail("map reload: the loaded map did not relocalize the frame")
+    err = float(np.linalg.norm(np.linalg.inv(tcw)[:3, 3]
+                               - np.linalg.inv(seq.poses[RELOC_FRAME])[:3, 3]))
+    print(f"[map reload] phase 9's map saved and loaded ({system.map.n_keyframes()} "
+          f"keyframes, {system.map.n_points()} points, identical: {same}); in localization "
+          f"mode frame {RELOC_FRAME} relocalized {err:.4f} m from the truth (limit "
+          f"{RELOC_TOL_M}), EPnP RANSAC runs {len(calls)}", flush=True)
+    if not same:
+        fail("map reload: the loaded map differs from the saved one")
+    if not calls:
+        fail("map reload: relocalized without the keyframe database (no EPnP run)")
+    if err >= RELOC_TOL_M:
+        fail(f"map reload: {err:.4f} m from the true pose")
+    return dict(err_m=err, epnp_runs=len(calls))
+
+
+def check_global_ba(system, seq) -> dict:
+    """Phase 15c: SLAMSystem.global_bundle_adjust on the default drive's final
+    map (phase 14, fetch_batch 1): the first keyframe is the gauge."""
+    m = system.map
+    n = len(system.tracker.trajectory)
+    gt = np.stack([np.linalg.inv(seq.poses[i]) for i in range(n)])
+    ate_before = ate_rmse(system.tracker.full_trajectory_twc(), gt)
+    poses = m.kf_pose.copy()
+    ids = m.keyframe_ids()
+    change = m.change_index
+    t0 = time.perf_counter()
+    system.global_bundle_adjust()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ate_after = ate_rmse(system.tracker.full_trajectory_twc(), gt)
+    gauge = float(np.abs(m.kf_pose[ids[0]] - poses[ids[0]]).max())
+    moved = float(np.abs(m.kf_pose[ids] - poses[ids]).max())
+    print(f"[global BA] on phase 14's map ({len(ids)} keyframes, {m.n_points()} points): "
+          f"{ms:.1f} ms, first keyframe moved {gauge:.2e} (limit {GAUGE_TOL}), the others up "
+          f"to {moved:.2e}; ATE-RMSE {ate_before:.4f} m before, {ate_after:.4f} m after",
+          flush=True)
+    if gauge > GAUGE_TOL:
+        fail(f"global BA: the first keyframe moved by {gauge}")
+    if m.change_index == change:
+        fail("global BA: the map's change index did not move")
+    if not np.isfinite(m.kf_pose[ids]).all():
+        fail("global BA: a pose is not finite")
+    return dict(ms=ms, gauge_moved=gauge, poses_moved=moved, ate_before_m=ate_before,
+                ate_after_m=ate_after)
+
+
+def drive_backlog(cam, orb_cfg, frames, seq, voc) -> dict:
+    """Phase 16: make the mapping worker fall behind (a keyframe every second
+    frame, every local-BA solve held BACKLOG_BA_DELAY_S longer, frames back to
+    back, the vocabulary on) and count the four paths a worker behind takes.
+    A path the drive did not reach is then provoked on its last keyframe, as
+    the CPU test of that path does, and the phase says which came about by
+    themselves. Fails unless each path ran at least once."""
+    frames = frames[:BACKLOG_FRAMES]
+    print(f"[backlog] SLAMSystem.track_rgbd with the defaults, a keyframe every "
+          f"{BACKLOG_KF_EVERY} frames, each local BA held {BACKLOG_BA_DELAY_S} s longer, "
+          f"{voc.n_words}-word vocabulary, {len(frames)} frames back to back", flush=True)
+    cfg = defaults_config(cam, orb_cfg, force_kf_every=BACKLOG_KF_EVERY, profile_stages=True)
+    system = SLAMSystem(cfg, Sensor.RGBD, vocabulary=voc)
+    mapper, tracker = system.local_mapper, system.tracker
+    solve = local_mapping.ba.bundle_adjust
+    queue_max = [0]
+
+    def slow_solve(*a, **k):
+        out = solve(*a, **k)
+        time.sleep(BACKLOG_BA_DELAY_S)
+        return out
+
+    def pace():
+        queue_max[0] = max(queue_max[0], system.mapping_worker.queue_size())
+
+    local_mapping.ba.bundle_adjust = slow_solve
+    try:
+        d = drive("backlog", system.track_rgbd, tracker, frames, seq, pace, pipelined=True)
+        if not system.wait_mapping_idle(300):
+            fail("backlog: the mapping worker did not become idle within 300 s")
+    finally:
+        local_mapping.ba.bundle_adjust = solve
+    natural = {path: mapper.counts[key] for path, key in BACKLOG_PATHS.items()}
+    ate = check_trajectory("backlog", tracker, seq, d)
+    m = system.map
+    ids = m.keyframe_ids()
+    kf = int(ids[np.argmax(m.kf_order[ids])])
+    provoked = []
+
+    def again(path, **kw):
+        provoked.append(path)
+        mapper.process_keyframe(kf, **kw)
+
+    if not natural["correction_gen drop"]:
+        def solve_during_correction(*a, **k):
+            out = solve(*a, **k)
+            with tracker.map_lock:
+                m.correction_gen += 1    # a loop correction lands mid-solve
+            return out
+
+        local_mapping.ba.bundle_adjust = solve_during_correction
+        try:
+            again("correction_gen drop")
+        finally:
+            local_mapping.ba.bundle_adjust = solve
+    if not natural["interrupt_ba"]:
+        mapper.interrupt_ba = True       # the tracker asked for a keyframe
+        again("interrupt_ba")
+    if not natural["backlog skip"]:
+        again("backlog skip", backlog=True)
+    if not natural["stage-conflict rerun"]:
+        # the triangulation and fuse searches each edit the map's
+        # observations once after they ran, as a keyframe the tracker
+        # inserts meanwhile would
+        searches = [(local_mapping, "triangulate_neighbors"), (kernels, "fuse_targets")]
+        kept = [getattr(mod, name) for mod, name in searches]
+
+        def search_then_edit(search):
+            def run(*a, **k):
+                out = search(*a, **k)
+                with tracker.map_lock:
+                    m.touch_obs()
+                return out
+            return run
+
+        for (mod, name), search in zip(searches, kept):
+            setattr(mod, name, search_then_edit(search))
+        try:
+            again("stage-conflict rerun")
+        finally:
+            for (mod, name), search in zip(searches, kept):
+                setattr(mod, name, search)
+    counts = {path: mapper.counts[key] for path, key in BACKLOG_PATHS.items()}
+    system.shutdown()
+    print(f"  frames tracked {d['tracked']}/{len(frames)}, keyframes created "
+          f"{int(m._kf_counter)}, worker queue up to {queue_max[0]}, ATE-RMSE {ate:.4f} m, "
+          f"{d['ms_per_frame']:.2f} ms per steady-state frame; kernel launches "
+          f"{d['launches']}; local BAs applied {mapper.counts['ba_applied']}, skipped "
+          f"{mapper.counts['ba_skipped']}", flush=True)
+    print("  mapping paths (count after the drive -> after provoking): " + ", ".join(
+        f"{p} {natural[p]} -> {counts[p]}" for p in BACKLOG_PATHS) + "; came about by "
+        f"themselves: {[p for p in BACKLOG_PATHS if natural[p]]}, provoked: {provoked}",
+          flush=True)
+    missing = [p for p, n in counts.items() if n < 1]
+    if missing:
+        fail(f"backlog: the mapping paths {missing} never ran")
+    return dict(launches=d["launches"], tracked=d["tracked"], ate_m=ate,
+                queue_max=queue_max[0], natural=natural, counts=counts, provoked=provoked,
+                ms_per_frame=d["ms_per_frame"])
+
+
 def main() -> None:
     # ---- phase 1: device --------------------------------------------------
     if not torch.cuda.is_available():
@@ -1480,6 +1928,17 @@ def main() -> None:
     # ---- phases 12 and 13: stereo at KITTI geometry and capacity ----------
     stereo_kitti, stereo_system, stereo_seq, stereo_frames = drive_stereo_kitti()
     stereo_parts = check_stereo_parts(stereo_system, stereo_seq, stereo_frames)
+    # ---- phase 14: the default configuration (this slice's main path) ----
+    defaults_k1, defaults_system = drive_defaults_rgbd(
+        "defaults", defaults_config(cam, orb_cfg), frames, seq)
+    defaults_k4, _ = drive_defaults_rgbd(
+        "defaults K=4", defaults_config(cam, orb_cfg, fetch_batch=4), frames, seq)
+    defaults_stereo = drive_defaults_stereo(stereo_seq, stereo_frames)
+    # ---- phases 15 and 16: localization mode and the system API; backlog --
+    localization = check_localization(cam, orb_cfg)
+    reload = check_map_reload(place_system, place_seq, place_frames)
+    gba = check_global_ba(defaults_system, seq)
+    backlog = drive_backlog(cam, orb_cfg, frames, seq, place_system.vocabulary)
     check_no_jax("after the drives")  # a lazy import on a drive shows here
 
     print(json.dumps({"kernels": [{
@@ -1495,7 +1954,12 @@ def main() -> None:
         "stereo_16_levels": {**stereo_parts.pop("describe16"),
                              "launches": stereo_kitti["launches"],
                              "launches_per_frame": stereo_kitti["launches_per_frame_build"]},
-        "launches_by_path": {"stereo_kitti": stereo_kitti["launches"],
+        "launches_by_path": {"defaults_rgbd": defaults_k1["launches"],
+                             "defaults_rgbd_fetch_batch_4": defaults_k4["launches"],
+                             "defaults_stereo": defaults_stereo["launches"],
+                             "localization": localization["launches"],
+                             "backlog": backlog["launches"],
+                             "stereo_kitti": stereo_kitti["launches"],
                              "slam_system_with_mapping_worker": main_path["launches"],
                              "tracker_without_mapper": tracker_alone["launches"],
                              "keyframe_dense_mapped": dense["launches"],
@@ -1506,7 +1970,11 @@ def main() -> None:
         "relocalization": reloc, "loop_card_vs_cpu": loop,
         "stereo_kitti": stereo_kitti, "stereo_parts": stereo_parts,
         "local_ba_card_vs_cpu": ba_check,
-        "mapping_searches_card_vs_cpu": search_check}]}), flush=True)
+        "mapping_searches_card_vs_cpu": search_check,
+        "defaults": {"rgbd": defaults_k1, "rgbd_fetch_batch_4": defaults_k4,
+                     "stereo": defaults_stereo},
+        "localization": localization, "map_reload": reload, "global_ba": gba,
+        "backlog": backlog}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,6 +59,19 @@
 //   __ballot_sync yields word w. Rotation products use the non-fusing
 //   intrinsics so that the rounded offsets agree with the plain PyTorch
 //   version of the same function.
+// - One order of the moment sums, stated here and repeated by the plain
+//   version (ops/cuda_orb.py, _moments_plain): lane c sums column
+//   dx = c - 15 of the disc over its rows in row order, col_sum += v and
+//   m01 = fma(dy, v, m01), one rounding a step; m10 = dx * col_sum, rounded;
+//   then the butterfly halves the 32 lanes five times (lane 31 holds zeros),
+//   lane i adding lane i + half. The sums are exact only for integer pixels;
+//   resampled levels and float renders round, and a sum in another order
+//   moves the angle and may flip a bit. The fma is nvcc's contraction of
+//   m01 += dy * v (its default, -fmad=true); m10's product is rounded, as
+//   the butterfly sends it. Written out with __fmaf_rn and __fmul_rn, the
+//   same order measured slower on the card (PERF.md), so the source leaves
+//   it to the compiler, and chip_smoke.py holds kernel and plain version to
+//   identical descriptors.
 //
 // Plain C interface; built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -164,6 +177,7 @@ orient_describe_kernel(const __grid_constant__ OrientDescribeTable table,
     }
 
     // ---- moments over the disc of the raw patch, rows in order ----
+    // (the order the plain version repeats: see the note above)
     float col_sum = 0.0f;  // sum of the lane's column (for m10)
     float m01 = 0.0f;
     if (loads) {
@@ -172,7 +186,7 @@ orient_describe_kernel(const __grid_constant__ OrientDescribeTable table,
             const int dy = r - kHalfPatch;
             if (dx * dx + dy * dy <= kHalfPatch * kHalfPatch) {
                 col_sum += v[r];
-                m01 += (float)dy * v[r];
+                m01 += (float)dy * v[r];  // one fused multiply-add (see the note)
             }
         }
     }

@@ -447,6 +447,17 @@ def _fused_track_core(kp, ur, depth, tcw_pred, last_kp, last_pid,
         mm_matches=mm_matches, mm_inliers=n_in1, n_inliers=n_in2)
 
 
+def _resolve_pred(tcw_pred) -> torch.Tensor:
+    """The motion-model prediction, given as a [4, 4] pose or as a
+    ``(velocity, tcw_prev)`` pair composed here, on the tensors' device, in
+    float32. The pair lets a pipelined tracker chain a frame off the previous
+    step's pose while that pose is still on the device and not fetched."""
+    if isinstance(tcw_pred, tuple):
+        vel, tcw_prev = tcw_pred
+        return vel @ tcw_prev
+    return tcw_pred
+
+
 def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
                      tcw_pred, last_kp, last_pid, local_ids, local_sel,
                      radius_mult, pt_pos, pt_desc, pt_valid, pt_normal,
@@ -454,7 +465,8 @@ def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
     """The fused whole-frame step for the sensor's image tuple: frame build
     followed by `_fused_track_core`. `sensor_images` is ``("rgbd", (gray,
     depth))`` or ``("stereo", (left, right))``; the monocular build is not
-    ported yet."""
+    ported yet. `tcw_pred`: a pose or a ``(velocity, tcw_prev)`` pair
+    (`_resolve_pred`)."""
     from orbslam2_tpu_torch.frontend import frame as frame_mod
 
     kind, imgs = sensor_images
@@ -467,9 +479,9 @@ def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
             f"fused frame step for sensor '{kind}' is not ported yet "
             "(ROADMAP Queue 1: mono)")
     return _fused_track_core(
-        kp, ur, depth, tcw_pred, last_kp, last_pid, local_ids, local_sel,
-        radius_mult, pt_pos, pt_desc, pt_valid, pt_normal, pt_min, pt_max,
-        cam, scale_factor, n_levels)
+        kp, ur, depth, _resolve_pred(tcw_pred), last_kp, last_pid, local_ids,
+        local_sel, radius_mult, pt_pos, pt_desc, pt_valid, pt_normal, pt_min,
+        pt_max, cam, scale_factor, n_levels)
 
 
 def build_pose_obs_from_frame(

@@ -106,10 +106,13 @@ class LocalMapper:
         # more keyframes wait in its queue
         self.pending_fn = None
         self.stats = StageTimer(enabled=False)  # enabled with profile_stages
-        # counters of what the stages did (read by drives and tests)
+        # counters of what the stages did (read by drives and tests);
+        # ba_skipped counts the keyframes whose local BA was skipped, and
+        # ba_interrupted and ba_backlog its two causes (both may hold)
         self.counts = dict(points_created=0, obs_fused=0, points_merged=0,
                            kf_culled=0, ba_applied=0, ba_dropped=0,
-                           ba_skipped=0, conflicts=0)
+                           ba_skipped=0, ba_interrupted=0, ba_backlog=0,
+                           conflicts=0)
         # map lock, shared with the tracker (SLAMSystem wires the tracker's
         # RLock in). As the reference's LocalMapping thread, each stage takes
         # it only around host-state reads and writes, not across its device
@@ -184,8 +187,11 @@ class LocalMapper:
         # honoured at the stage boundary.
         aborted = self.interrupt_ba
         self.interrupt_ba = False
-        if aborted or _pending():
+        queued = _pending()
+        if aborted or queued:
             self.counts["ba_skipped"] += 1
+            self.counts["ba_interrupted"] += aborted
+            self.counts["ba_backlog"] += queued
         else:
             if m.n_keyframes() > 2:
                 with self.stats.stage("local_ba"):

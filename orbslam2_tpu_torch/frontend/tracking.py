@@ -6,14 +6,19 @@ reference-keyframe tracking -> local-map tracking -> keyframe decision; every
 per-point loop is a batched device step (frontend/kernels.py) and the map is
 a flat array store (slammap/mapstate.py).
 
-What this port covers so far: RGB-D and stereo frames (depth from the
-depth image, or from left-right matching), initialization from depth, the classic
-two-step path, the synchronous fused whole-frame path, keyframe insertion
-with close points spawned from depth, local mapping and (with a vocabulary)
-loop closing of every keyframe, inline or on the mapping worker's thread,
-relocalization through the keyframe database (KFDB candidates, EPnP RANSAC
-and the reference's escalation) or, without a vocabulary, through the
-reference keyframe, reset and trajectory bookkeeping.
+What this port covers: RGB-D and stereo frames (depth from the depth image,
+or from left-right matching), initialization from depth, the classic
+two-step path, the fused whole-frame path, synchronous or pipelined (a
+frame's results are fetched and applied while the next frame runs, in
+batches of ``fetch_batch`` frames), keyframe insertion with close points
+spawned from depth, local mapping and (with a vocabulary) loop closing of
+every keyframe, inline or on the mapping worker's thread, relocalization
+through the keyframe database (KFDB candidates, EPnP RANSAC and the
+reference's escalation) or, without a vocabulary, through the reference
+keyframe, localization mode with temporal visual-odometry points, the
+device-resident or host-staged local map, reset and trajectory bookkeeping.
+Only ``mono_async_mapping=True`` is refused with NotImplementedError (mono
+is ROADMAP.md, Queue 1).
 
 The tracker owns the map lock (a re-entrant lock shared with the local
 mapper). A classic-path frame holds it throughout; a fused frame holds it
@@ -23,9 +28,14 @@ before a mid-flight map change are validated on apply: erased or re-used
 point slots are dropped, and a frame staged before a pose correction is
 dispatched again.
 
-Monocular, localization mode, the pipelined and batched fetch and the
-host-staged local map are rejected with NotImplementedError (see
-ROADMAP.md, Queue 1).
+Three deliberate divergences from the JAX package's pipelined fetch (each
+has its test in tests/test_torch_pipeline_chain.py): a batch whose apply
+broke the chain makes the batch chained off it track again, even when a
+frame tracked again in between cleared the stale-carry flag; the pose
+returned for a frame in flight composes the velocity once for every frame
+between the last applied frame and this one, not once; and a frame that
+fails after chaining across a keyframe it did not see is dispatched again
+(`_apply_one`).
 """
 from __future__ import annotations
 
@@ -55,6 +65,10 @@ class TrackingState(enum.Enum):
     NOT_INITIALIZED = 1
     OK = 2
     LOST = 3
+
+
+# what Tracker._fused_apply returns for a frame to be dispatched again
+_MISSED_KEYFRAME = object()
 
 
 @dataclasses.dataclass
@@ -99,20 +113,9 @@ class SLAMConfig:
 def check_supported(config: SLAMConfig) -> None:
     """Raise for configuration values whose implementation is not ported
     yet; each names its ROADMAP item."""
-    pending = []
-    if config.localization_only:
-        pending.append("localization_only=True (localization mode + VO points)")
-    if config.pipelined_fetch:
-        pending.append("pipelined_fetch=True (pipelined/batched fetch)")
-    if config.fetch_batch > 1:
-        pending.append("fetch_batch>1 (pipelined/batched fetch)")
-    if not config.device_local_map:
-        pending.append("device_local_map=False (host-staged local map)")
     if config.mono_async_mapping:
-        pending.append("mono_async_mapping=True (mono)")
-    if pending:
         raise NotImplementedError(
-            "not ported yet (ROADMAP.md, Queue 1): " + "; ".join(pending))
+            "not ported yet (ROADMAP.md, Queue 1): mono_async_mapping=True (mono)")
 
 
 @dataclasses.dataclass
@@ -179,6 +182,18 @@ class Tracker:
         self._selection_fresh = False  # set when a classic-path frame just
         # computed the selection (skip the end-of-frame recompute)
         self._last_pid_dev: Optional[torch.Tensor] = None  # device [N]
+        # localization-mode VO state (the reference's mbVO): True while the
+        # frame tracks under 10 map points and survives on temporal points
+        self.mb_vo = False
+        self._vo_mask = self._vo_pos = None   # last frame's temporal points
+        self._aux_mask = self._aux_pos = None  # this frame's matches to them
+        # pipelined-fetch state: `_pending` holds dispatched frames whose
+        # batch fetch is not submitted yet (at most fetch_batch - 1);
+        # `_inflight` is the one submitted batch (records, fetch) whose
+        # results are applied with the next batch
+        self._pending: list = []
+        self._inflight: Optional[tuple] = None
+        self._carry_wrong = False  # an apply found stale ids / fell back
         # the map lock (shared with the local mapper) and the mapping worker
         # (set by SLAMSystem when async_mapping is on)
         self.map_lock = threading.RLock()
@@ -191,6 +206,9 @@ class Tracker:
         # BA) rebased the map while their fused step was in flight: each is
         # one more extraction (read by drives)
         self.rebuilt_frames = 0
+        # pipelined frames tracked again because the frame or batch they
+        # were chained off was discarded: each is one more extraction
+        self.retracked_frames = 0
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         """Host array -> tensor on the tracker's device."""
@@ -237,9 +255,13 @@ class Tracker:
         with self.map_lock:
             fused = (self.cfg.fused_frame and self.state == TrackingState.OK
                      and self.velocity is not None
+                     and not self.cfg.localization_only
                      and self._local_ids is not None)
         if fused:
             return self._track_fused(kind, imgs, timestamp)
+        # classic path (init, reloc, localization mode, motion-model
+        # fallback): apply the frames in flight first, in order
+        self.flush_frames()
         with self.map_lock:
             fr = self._build_frame(kind, imgs, timestamp)
             return self._track_locked(fr)
@@ -261,15 +283,20 @@ class Tracker:
         if self.state == TrackingState.OK:
             self._update_last_frame()
             with self.stats.stage("initial_track"):
-                if self.velocity is not None:
-                    ok = self._track_with_motion_model(fr)
-                if not ok:
-                    ok = self._track_reference_keyframe(fr)
+                if self.cfg.localization_only:
+                    ok = self._track_localization_mode(fr)
+                else:
+                    if self.velocity is not None:
+                        ok = self._track_with_motion_model(fr)
+                    if not ok:
+                        ok = self._track_reference_keyframe(fr)
         else:
             with self.stats.stage("relocalize"):
                 ok = self._relocalize(fr)
 
-        if ok:
+        # in localization mode on temporal points only (mb_vo) the local map
+        # is skipped
+        if ok and not (self.cfg.localization_only and self.mb_vo):
             with self.stats.stage("local_map"):
                 ok = self._track_local_map(fr)
 
@@ -280,14 +307,15 @@ class Tracker:
                       ) -> Optional[np.ndarray]:
         """Shared frame epilogue: state/velocity update, keyframe decision,
         loss handling, trajectory bookkeeping."""
+        mapping = not self.cfg.localization_only
         if ok:
             self.state = TrackingState.OK
             if self.last_frame is not None:
                 self.velocity = fr.tcw @ np.linalg.inv(self.last_frame.tcw)
-            if self._need_new_keyframe(fr):
+            if mapping and self._need_new_keyframe(fr):
                 with self.stats.stage("new_keyframe"):
                     self._create_new_keyframe(fr)
-            if self.cfg.fused_frame:
+            if self.cfg.fused_frame and mapping:
                 if self._selection_fresh:
                     self._selection_fresh = False
                 else:
@@ -298,8 +326,8 @@ class Tracker:
             self.velocity = None
             self._last_pid_dev = None
             # auto-reset when lost right after initialization
-            # (<= 5 keyframes in the map)
-            if self.map.n_keyframes() <= 5:
+            # (<= 5 keyframes in the map); a frozen map is kept
+            if self.map.n_keyframes() <= 5 and mapping:
                 self._record_trajectory(fr, lost=True)
                 self.last_frame = fr
                 self.reset()
@@ -337,31 +365,100 @@ class Tracker:
 
     def _track_fused(self, kind: str, imgs, timestamp: float
                      ) -> Optional[np.ndarray]:
-        """Fused steady-state frame, synchronous: dispatch, fetch, apply."""
+        """Fused steady-state frame. Synchronous (``pipelined_fetch=False``):
+        dispatch, fetch, apply, and the solved pose is returned. Pipelined:
+        the frame is dispatched chained off the newest frame in flight (its
+        pose, keypoints and associations still on the device), its small
+        outputs are copied to pinned host memory behind it, and the batch
+        before it is applied now; the pose returned is the motion-model
+        prediction, and the solved pose reaches the trajectory one batch
+        later. A batch whose premises the applied batch broke (loss, a
+        fallback, stale ids, a new keyframe with fetch_batch > 1) is tracked
+        again, frame by frame."""
         with self.stats.stage("fused_step"):
             imgs_d = tuple(self._dev(im, torch.float32) for im in imgs)
+            # backpressure: while the mapping worker's queue is full (the
+            # limit that blocks keyframe insertion) frames go synchronous, so
+            # that the fetch throttles an unpaced feed instead of starving
+            # keyframe insertion
+            pipelined = self.cfg.pipelined_fetch and (
+                self.mapping_worker is None or self.mapping_worker.accept_keyframes())
             rec = self._fused_dispatch(kind, imgs_d, timestamp)
-            with self.stats.stage("fused_dev"):
-                fetched = self._fused_fetch(rec["out"])
-            return self._apply_one(rec, fetched)
+            self._pending.append(rec)
+            k = max(1, self.cfg.fetch_batch) if pipelined else 1
+            if len(self._pending) >= k:
+                # the new batch stays detached from `_inflight` until the
+                # previous batch is applied: a reset fired by that apply
+                # must not discard frames this call still owns
+                batch, self._pending = self._pending, []
+                entry = self._submit_batch_fetch(batch)
+                prev, self._inflight = self._inflight, None
+                if prev is not None:
+                    kf0 = self.last_kf_frame_id
+                    _, broke = self._finish_batch(prev)
+                    if not self._chain_ok(broke, kf0):
+                        ret = None
+                        for r in batch:
+                            ret = self._retrack_sync(r)
+                        return ret
+                if not pipelined:
+                    return self._finish_batch(entry)[0]
+                self._inflight = entry
+            return self._predicted_pose(rec["frame_id"])
+
+    def _chain_ok(self, broke: bool, kf0: int) -> bool:
+        """A batch chained off the batch just applied stands: tracking is
+        healthy, no apply broke the chain, and (with fetch_batch > 1) no
+        keyframe was created since ``kf0``."""
+        with self.map_lock:
+            return (self.state == TrackingState.OK and self.velocity is not None
+                    and not broke and not self.cfg.localization_only
+                    and not (self.cfg.fetch_batch > 1 and self.last_kf_frame_id != kf0))
+
+    def _predicted_pose(self, frame_id: int) -> np.ndarray:
+        """The pose of a frame in flight: the velocity composed once for each
+        frame between the last applied frame and this one."""
+        with self.map_lock:
+            steps = max(1, frame_id - self.last_frame.frame_id)
+            vel = np.linalg.matrix_power(np.asarray(self.velocity, np.float64), steps)
+            return (vel @ self.last_frame.tcw).astype(np.float32)
 
     def _fused_dispatch(self, kind: str, imgs_d, timestamp: float,
-                        frame_id: Optional[int] = None) -> dict:
+                        frame_id: Optional[int] = None,
+                        chain_off_pipe: bool = True) -> dict:
         """Stage a consistent snapshot under the map lock, then run the fused
-        step unlocked. Returns the record consumed by _fused_fetch and
-        _apply_one. `frame_id` is given when a frame is dispatched again."""
+        step unlocked. Returns the record consumed by _submit_batch_fetch and
+        _apply_one. `frame_id` is given when a frame is dispatched again.
+        With `chain_off_pipe` the frame chains off the newest pending or
+        in-flight frame's device outputs (its pose, keypoints and
+        associations); otherwise, and when nothing is in flight, off the
+        applied host state."""
         with self.map_lock:
-            self._update_last_frame()
-            last = self.last_frame
-            tcw_pred = (np.asarray(self.velocity, np.float32)
-                        @ np.asarray(last.tcw, np.float32))
-            last_pid = self._last_pid_dev
-            if last_pid is None:
-                last_pid = self._dev(last.pt_ids)
+            chain = None
+            if chain_off_pipe:
+                chain = (self._pending[-1] if self._pending
+                         else self._inflight[0][-1] if self._inflight else None)
+            vel = self._dev(np.asarray(self.velocity, np.float32))
+            if chain is None:
+                self._update_last_frame()
+                last = self.last_frame
+                tcw_prev = self._dev(np.asarray(last.tcw, np.float32))
+                last_kp = last.kp
+                last_pid = self._last_pid_dev
+                if last_pid is None:
+                    last_pid = self._dev(last.pt_ids)
+            else:
+                # the velocity is one frame older than the chain parent's:
+                # constant velocity over two frames, which the search's
+                # widening absorbs
+                tcw_prev = chain["out"].tcw
+                last_kp = chain["out"].kp
+                last_pid = chain["out"].pt_ids
             # the mirror's tensors are a snapshot: a sync replaces them
             mir = self.map.device_mirror(self.device)
             corr_gen = self.map.correction_gen
             stamp_snap = self.map._pt_counter
+            kf_snap = self.last_kf_frame_id
             if frame_id is None:
                 frame_id = self.frame_counter
                 self.frame_counter += 1
@@ -373,57 +470,178 @@ class Tracker:
         out = kernels.fused_frame_step(
             (kind, imgs_d), self.extractor, self.cam,
             self.cfg.orb.scale_factor, self.cfg.orb.n_levels,
-            self._dev(tcw_pred), last.kp, last_pid, local_ids, local_sel,
+            (vel, tcw_prev), last_kp, last_pid, local_ids, local_sel,
             radius_mult,
             mir.pt_pos, mir.pt_desc, mir.pt_valid, mir.pt_normal,
             mir.pt_min_dist, mir.pt_max_dist)
         return dict(out=out, kind=kind, imgs_d=imgs_d, timestamp=timestamp,
-                    frame_id=frame_id, corr_gen=corr_gen,
-                    stamp_snap=stamp_snap, local_pts=local_pts)
-
-    def _apply_one(self, rec: dict, fetched) -> Optional[np.ndarray]:
-        """Apply one fetched frame. A pose correction that rebased the map
-        while the step was in flight (map.correction_gen moved) voids the
-        solved pose: the frame is dispatched again against the corrected
-        state; after two corrections in a row it takes the classic path."""
-        for _attempt in range(2):
-            with self.map_lock:
-                if self.map.correction_gen == rec["corr_gen"]:
-                    return self._fused_apply(rec, fetched)
-                self._last_pid_dev = None
-            self.rebuilt_frames += 1
-            rec = self._fused_dispatch(rec["kind"], rec["imgs_d"],
-                                       rec["timestamp"], frame_id=rec["frame_id"])
-            with self.stats.stage("fused_dev"):
-                fetched = self._fused_fetch(rec["out"])
-        with self.map_lock:
-            self.rebuilt_frames += 1
-            fr = self._build_frame(rec["kind"], rec["imgs_d"], rec["timestamp"])
-            return self._track_locked(fr)
+                    frame_id=frame_id, corr_gen=corr_gen, stamp_snap=stamp_snap,
+                    kf_snap=kf_snap, local_pts=local_pts)
 
     @staticmethod
-    def _fused_fetch(out: kernels.FusedFrameOut):
-        """The frame's small outputs in two transfers: integers, floats."""
-        n = out.pt_ids.shape[0]
-        c = out.visible.shape[0]
+    def _fetch_parts(out: kernels.FusedFrameOut):
+        """A frame's small outputs as two device tensors: integers (pt_ids,
+        is_outlier, visible, the three counts) and floats (tcw, depth, ur)."""
         ints = torch.cat([
             out.pt_ids.to(torch.int32), out.is_outlier.to(torch.int32),
             out.visible.to(torch.int32),
             torch.stack([out.mm_matches, out.mm_inliers, out.n_inliers]
-                        ).to(torch.int32),
-        ]).cpu().numpy()
-        floats = torch.cat([out.tcw.reshape(-1), out.depth, out.ur]).cpu().numpy()
+                        ).to(torch.int32)])
+        floats = torch.cat([out.tcw.reshape(-1), out.depth, out.ur])
+        return ints, floats
+
+    @staticmethod
+    def _unpack(out: kernels.FusedFrameOut, ints: np.ndarray, floats: np.ndarray):
+        """One frame's fetched integers and floats -> the tuple _fused_apply
+        takes."""
+        n = out.pt_ids.shape[0]
+        c = out.visible.shape[0]
         return (floats[:16].reshape(4, 4), ints[:n],
                 ints[n:2 * n].astype(bool), ints[2 * n:2 * n + c].astype(bool),
                 int(ints[-3]), int(ints[-2]), int(ints[-1]),
                 floats[16:16 + n], floats[16 + n:])
 
-    def _fused_apply(self, rec: dict, fetched) -> Optional[np.ndarray]:
+    def _fetch_now(self, out: kernels.FusedFrameOut):
+        """Fetch one frame's outputs, blocking."""
+        ints, floats = self._fetch_parts(out)
+        return self._unpack(out, ints.cpu().numpy(), floats.cpu().numpy())
+
+    def _submit_batch_fetch(self, batch: list) -> tuple:
+        """One transfer for the whole batch: the frames' small outputs are
+        concatenated on the device and copied into pinned host memory without
+        blocking the host, and an event marks the end of the copy. On the
+        CPU the outputs are host memory already. -> (batch, fetch)."""
+        parts = [self._fetch_parts(r["out"]) for r in batch]
+        ints = torch.cat([p[0] for p in parts])
+        floats = torch.cat([p[1] for p in parts])
+        event = None
+        if ints.is_cuda:
+            ints_h = torch.empty(ints.shape, dtype=ints.dtype, pin_memory=True)
+            floats_h = torch.empty(floats.shape, dtype=floats.dtype, pin_memory=True)
+            ints_h.copy_(ints, non_blocking=True)
+            floats_h.copy_(floats, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            ints, floats = ints_h, floats_h
+        sizes = [(p[0].shape[0], p[1].shape[0]) for p in parts]
+        return batch, (ints, floats, event, sizes)
+
+    def _finish_batch(self, entry: tuple):
+        """Wait for a batch's fetch and apply its frames in order. Once an
+        apply breaks the chain (loss, the fallback path, stale ids, a mode
+        switch, a new keyframe with fetch_batch > 1), the remaining frames'
+        results rest on discarded state: each is tracked again.
+        -> (the last frame's return value, whether the chain broke)."""
+        batch, (ints, floats, event, sizes) = entry
+        with self.stats.stage("fused_dev"):
+            if event is not None:
+                event.synchronize()
+            ints, floats = ints.numpy(), floats.numpy()
+        self._carry_wrong = False
+        ret = None
+        broken = False
+        kf0 = self.last_kf_frame_id
+        i0 = f0 = 0
+        for rec, (ni, nf) in zip(batch, sizes):
+            fetched = self._unpack(rec["out"], ints[i0:i0 + ni], floats[f0:f0 + nf])
+            i0, f0 = i0 + ni, f0 + nf
+            if broken:
+                ret = self._retrack_sync(rec)
+                continue
+            ret = self._apply_one(rec, fetched)
+            with self.map_lock:
+                # a keyframe created mid-batch adds points the rest of a
+                # multi-frame batch never saw: track the rest again
+                broken = (self.state != TrackingState.OK or self.velocity is None
+                          or self._carry_wrong or self.cfg.localization_only
+                          or (self.cfg.fetch_batch > 1
+                              and self.last_kf_frame_id != kf0))
+        return ret, broken
+
+    def _apply_one(self, rec: dict, fetched) -> Optional[np.ndarray]:
+        """Apply one fetched frame. A pose correction that rebased the map
+        while the step was in flight (map.correction_gen moved) voids the
+        solved pose: the frame is dispatched again against the corrected
+        state, chained off the applied state; after two corrections in a row
+        it takes the classic path.
+
+        A deliberate divergence from the JAX package: a pipelined frame that
+        failed where the JAX package fails it (the motion model and then the
+        reference-keyframe fallback, or the local map), and was dispatched
+        before a keyframe was created (it chained across the keyframe without
+        its new points), is dispatched again against the map with them
+        instead of being lost. The JAX package loses it, and with five
+        keyframes or fewer resets the map (ROADMAP.md, deliberate
+        divergences)."""
+        for _attempt in range(2):
+            with self.map_lock:
+                if self.map.correction_gen == rec["corr_gen"]:
+                    ret = self._fused_apply(rec, fetched)
+                    if ret is not _MISSED_KEYFRAME:
+                        return ret
+                    self.retracked_frames += 1
+                else:
+                    self.rebuilt_frames += 1
+                self._last_pid_dev = None
+                self._carry_wrong = True
+            rec = self._fused_dispatch(rec["kind"], rec["imgs_d"],
+                                       rec["timestamp"], frame_id=rec["frame_id"],
+                                       chain_off_pipe=False)
+            with self.stats.stage("fused_dev"):
+                fetched = self._fetch_now(rec["out"])
+        with self.map_lock:
+            self.rebuilt_frames += 1
+            fr = self._build_frame(rec["kind"], rec["imgs_d"], rec["timestamp"])
+            return self._track_locked(fr)
+
+    def _missed_keyframe(self, rec: dict) -> bool:
+        """A keyframe was created after the frame was dispatched."""
+        return self.last_kf_frame_id != rec["kf_snap"]
+
+    def _retrack_sync(self, rec: dict) -> Optional[np.ndarray]:
+        """Track again a frame whose chained dispatch was invalidated: a
+        fused dispatch from the applied state while tracking is healthy, the
+        classic path otherwise."""
+        self.retracked_frames += 1
+        with self.map_lock:
+            classic = (self.state != TrackingState.OK or self.velocity is None
+                       or self.cfg.localization_only)
+            if classic:
+                fr = self._build_frame(rec["kind"], rec["imgs_d"], rec["timestamp"])
+                return self._track_locked(fr)
+        self._carry_wrong = False
+        rec2 = self._fused_dispatch(rec["kind"], rec["imgs_d"], rec["timestamp"],
+                                    frame_id=rec["frame_id"], chain_off_pipe=False)
+        with self.stats.stage("fused_dev"):
+            fetched = self._fetch_now(rec2["out"])
+        return self._apply_one(rec2, fetched)
+
+    def flush_frames(self) -> None:
+        """Apply every pipelined frame in flight (waits for their fetch).
+        Precedes every read of per-frame bookkeeping (trajectory, savers)
+        and every classic-path frame."""
+        entry, self._inflight = self._inflight, None
+        pending, self._pending = self._pending, []
+        kf0 = self.last_kf_frame_id
+        broke = False
+        if entry is not None:
+            _, broke = self._finish_batch(entry)
+        if pending:
+            if entry is not None and not self._chain_ok(broke, kf0):
+                for rec in pending:
+                    self._retrack_sync(rec)
+            else:
+                self._finish_batch(self._submit_batch_fetch(pending))
+
+    def _fused_apply(self, rec: dict, fetched):
         """Host bookkeeping for a fused frame step (map lock held).
         Associations staged before a mid-flight mapping change are validated
         again: erased or re-allocated point slots (pt_stamp >= the staging
         snapshot) are dropped, as the reference tracker's per-use isBad()
-        checks drop them."""
+        checks drop them. -> the pose, or None when lost; _MISSED_KEYFRAME,
+        with nothing finished, when the frame failed and a keyframe it did
+        not see was created after its dispatch (_apply_one dispatches it
+        again)."""
         (tcw_h, pid_h, outl_h, vis_h, mm_m, mm_in, n_in, depth_h,
          ur_h) = fetched
         out = rec["out"]
@@ -442,11 +660,15 @@ class Tracker:
             # motion-model failure: reference-KF fallback on the classic
             # path (rare; costs the extra fetches only on these frames)
             self._last_pid_dev = None
+            self._carry_wrong = True
             fr.tcw = (self.velocity @ self.last_frame.tcw).astype(np.float32)
             ok = self._track_reference_keyframe(fr)
             if ok:
                 with self.stats.stage("local_map"):
                     ok = self._track_local_map(fr)
+            if not ok and self._missed_keyframe(rec):
+                self._selection_fresh = False
+                return _MISSED_KEYFRAME
             return self._finish_frame(fr, ok)
 
         m = self.map
@@ -463,14 +685,18 @@ class Tracker:
         self._map_inliers = int((fr.pt_ids >= 0).sum())
         min_inliers = 30 if frame_id - self.last_reloc_frame_id > 30 else 50
         ok = n_in >= min_inliers
+        if not ok and self._missed_keyframe(rec):
+            return _MISSED_KEYFRAME
         if ok:
             lp = rec["local_pts"]
             vis_ids = lp[vis_h[: len(lp)]]
             vis_ids = vis_ids[m.pt_valid[vis_ids] & (m.pt_stamp[vis_ids] < stamp_snap)]
             m.increase_visible(vis_ids)
             m.increase_found(fr.pt_ids[fr.pt_ids >= 0])
-            # the device carry holds the stale ids too
+            # the device carry (and a frame chained off this one) holds the
+            # stale ids too
             self._last_pid_dev = None if stale.any() else out.pt_ids
+            self._carry_wrong = self._carry_wrong or bool(stale.any())
         else:
             self._last_pid_dev = None
         return self._finish_frame(fr, ok)
@@ -507,14 +733,61 @@ class Tracker:
 
     # ------------------------------------------------------------------
     def _update_last_frame(self) -> None:
-        """Refresh last frame's pose from its reference keyframe
-        (Tracking::UpdateLastFrame; the localization-mode VO points are
-        not ported yet)."""
+        """Refresh last frame's pose from its reference keyframe and, in
+        localization mode, make temporal visual-odometry points of its
+        unmatched keypoints with depth: every close one, at least the 100
+        nearest (Tracking::UpdateLastFrame)."""
+        self._vo_mask = self._vo_pos = None
+        self._aux_mask = self._aux_pos = None
         if not self.trajectory:
             return
         entry = self.trajectory[-1]
         if entry.ref_kf >= 0 and self.map.kf_valid[entry.ref_kf]:
             self.last_frame.tcw = entry.tcr @ self.map.kf_pose[entry.ref_kf]
+        if not self.cfg.localization_only:
+            return
+        last = self.last_frame
+        h = last.host_kp()
+        cand = np.where(h.valid & (h.depth > 0) & (last.pt_ids < 0))[0]
+        if len(cand) == 0:
+            return
+        order = cand[np.argsort(h.depth[cand])]
+        n_close = int((h.depth[order] < self.cfg.th_depth).sum())
+        take = order[:max(n_close, min(100, len(order)))]
+        twc = np.linalg.inv(last.tcw)
+        pw = self.cam.backproject_np(h.xy[take], h.depth[take]) @ twc[:3, :3].T + twc[:3, 3]
+        self._vo_mask = np.zeros(last.n, bool)
+        self._vo_mask[take] = True
+        self._vo_pos = np.zeros((last.n, 3), np.float32)
+        self._vo_pos[take] = pw
+
+    # ------------------------------------------------------------------
+    # localization mode (Tracking::Track with mbOnlyTracking): with enough
+    # map matches track as usual; on temporal points only (mb_vo) run the
+    # motion model and relocalization in the same frame and prefer the
+    # relocalization
+    # ------------------------------------------------------------------
+    def _track_localization_mode(self, fr: frame_mod.Frame) -> bool:
+        if not self.mb_vo:
+            if self.velocity is not None:
+                return self._track_with_motion_model(fr)
+            return self._track_reference_keyframe(fr)
+        ok_mm = False
+        kept = None
+        if self.velocity is not None:
+            ok_mm = self._track_with_motion_model(fr)
+            kept = (fr.tcw.copy(), fr.pt_ids.copy(), fr.is_outlier.copy(),
+                    self.matches_inliers)
+        ok_reloc = self._relocalize(fr)
+        if ok_mm and not ok_reloc:
+            fr.tcw, fr.pt_ids, fr.is_outlier, self.matches_inliers = kept
+            if self.mb_vo:
+                # surviving on temporal points, matched map points count as
+                # found
+                self.map.increase_found(fr.pt_ids[(fr.pt_ids >= 0) & ~fr.is_outlier])
+        elif ok_reloc:
+            self.mb_vo = False   # map tracking restored
+        return ok_reloc or ok_mm
 
     # ------------------------------------------------------------------
     # motion-model tracking
@@ -523,11 +796,16 @@ class Tracker:
         last = self.last_frame
         tcw_pred = (self.velocity @ last.tcw).astype(np.float32)
         last_pt = last.pt_ids
-        has_pt = (last_pt >= 0) & self.map.pt_valid[np.maximum(last_pt, 0)]
+        has_map_pt = (last_pt >= 0) & self.map.pt_valid[np.maximum(last_pt, 0)]
+        vo = self._vo_mask
+        has_pt = has_map_pt if vo is None else (has_map_pt | vo)
         if has_pt.sum() < 10:
             return False
         pos = np.zeros((last.n, 3), np.float32)
-        pos[has_pt] = self.map.pt_pos[last_pt[has_pt]]
+        pos[has_map_pt] = self.map.pt_pos[last_pt[has_map_pt]]
+        if vo is not None:
+            only_vo = vo & ~has_map_pt
+            pos[only_vo] = self._vo_pos[only_vo]
 
         # search (with conditional widen), observation staging, and robust
         # pose LM in one step + one fetch
@@ -542,8 +820,27 @@ class Tracker:
         fr.pt_ids[:] = -1
         m = assoc >= 0
         fr.pt_ids[m] = last_pt[assoc[m]]
+        aux_pos = aux_mask = None
+        if vo is not None:
+            # matches on temporal points carry their own world position
+            # instead of a map id
+            aux_mask = np.zeros(fr.n, bool)
+            aux_pos = np.zeros((fr.n, 3), np.float32)
+            idx = np.where(m & (fr.pt_ids < 0))[0]
+            idx = idx[vo[assoc[idx]]]
+            aux_mask[idx] = True
+            aux_pos[idx] = pos[assoc[idx]]
         fr.tcw = tcw_pred
-        return self._apply_pose_result(fr, step, min_inliers=10)
+        ok = self._apply_pose_result(fr, step, min_inliers=10)
+        # the local-map stage keeps them: in localization mode the inlier
+        # count includes temporal points
+        self._aux_pos, self._aux_mask = aux_pos, aux_mask
+        if self.cfg.localization_only:
+            # mbVO: under 10 map-point inliers the frame tracks on temporal
+            # points; it survives on more than 20 inliers in all
+            self.mb_vo = self._map_inliers < 10
+            return self.matches_inliers > 20
+        return ok
 
     # ------------------------------------------------------------------
     # reference-KF tracking
@@ -575,7 +872,14 @@ class Tracker:
     def reset(self) -> None:
         """Tracking::Reset: clear map and tracking state; trajectory
         bookkeeping survives for export (entries referencing cleared
-        keyframes resolve to their last pose)."""
+        keyframes resolve to their last pose). Frames in flight are
+        discarded, each with one lost entry."""
+        entry, self._inflight = self._inflight, None
+        pending, self._pending = self._pending, []
+        for rec in (entry[0] if entry else []) + pending:
+            self.trajectory.append(FrameTrajectoryEntry(
+                tcr=np.eye(4, dtype=np.float32), ref_kf=-1, ref_order=-1,
+                timestamp=rec["timestamp"], lost=True))
         self.map.clear()
         if self.kfdb is not None:
             self.kfdb.__init__(self.kfdb.voc, self.cfg.max_keyframes)
@@ -590,6 +894,7 @@ class Tracker:
         self._local_ids = self._local_sel = self._local_pts = None
         self._selection_fresh = False
         self._last_pid_dev = None
+        self.mb_vo = False
 
     # ------------------------------------------------------------------
     def _word_ids(self, fr: frame_mod.Frame) -> Optional[np.ndarray]:
@@ -720,32 +1025,69 @@ class Tracker:
         kp_taken = fr.pt_ids >= 0
         radius_mult = 3.0 if fr.frame_id - self.last_reloc_frame_id < 2 else 1.0
 
-        # prior associations (motion model / reloc) keep their staged world
-        # positions through the second pose optimization
+        # prior associations (motion model / reloc / localization-mode
+        # temporal points) keep their staged world positions through the
+        # second pose optimization
+        aux_pos = aux_mask = None
+        if self.cfg.localization_only:
+            aux_pos, aux_mask = self._aux_pos, self._aux_mask
+        prior_mask = kp_taken.copy()
         prior_pos = np.zeros((fr.n, 3), np.float32)
         prior_pos[kp_taken] = self.map.pt_pos[fr.pt_ids[kp_taken]]
+        if aux_mask is not None:
+            sel_aux = aux_mask & ~prior_mask
+            prior_mask |= sel_aux
+            prior_pos[sel_aux] = aux_pos[sel_aux]
 
         min_inliers = 30 if fr.frame_id - self.last_reloc_frame_id > 30 else 50
-        # device-resident map: ship only the local id list; rows are
-        # gathered on device from the synced mirror
-        mir = self.map.device_mirror(self.device)
-        sel = sel_all.copy()
-        sel[:n_local] = ~already
-        step = _host_step(kernels.local_map_step(
-            self._dev(fr.tcw), self._dev(sel_ids).long(), self._dev(sel),
-            mir.pt_pos, mir.pt_desc, mir.pt_valid, mir.pt_normal,
-            mir.pt_min_dist, mir.pt_max_dist,
-            fr.kp, fr.ur, self._dev(prior_pos), self._dev(kp_taken),
-            radius_mult, self.cam,
-            self.cfg.orb.scale_factor, self.cfg.orb.n_levels))
-        assoc, visible = step.assoc, step.visible
+        m = self.map
+        if self.cfg.device_local_map:
+            # device-resident map: ship only the local id list; rows are
+            # gathered on device from the synced mirror, and the search, the
+            # observation staging and the second pose optimization are one
+            # step
+            mir = m.device_mirror(self.device)
+            sel = sel_all.copy()
+            sel[:n_local] = ~already
+            step = _host_step(kernels.local_map_step(
+                self._dev(fr.tcw), self._dev(sel_ids).long(), self._dev(sel),
+                mir.pt_pos, mir.pt_desc, mir.pt_valid, mir.pt_normal,
+                mir.pt_min_dist, mir.pt_max_dist,
+                fr.kp, fr.ur, self._dev(prior_pos), self._dev(prior_mask),
+                radius_mult, self.cam,
+                self.cfg.orb.scale_factor, self.cfg.orb.n_levels))
+            assoc, visible = step.assoc, step.visible
+        else:
+            # host-staged: the local points' rows are gathered on the host
+            # and shipped with the frame
+            cap = len(sel_ids)
+
+            def rows(a, dtype=None):
+                out = np.zeros((cap,) + a.shape[1:], dtype or a.dtype)
+                out[:n_local] = a[pt_ids]
+                return self._dev(out)
+
+            valid = np.zeros(cap, bool)
+            valid[:n_local] = ~already
+            info, res = kernels.search_local_points(
+                self._dev(fr.tcw), rows(m.pt_pos), rows(m.pt_desc.view(np.int32)),
+                self._dev(valid), rows(m.pt_normal), rows(m.pt_min_dist),
+                rows(m.pt_max_dist), fr.kp, self._dev(kp_taken), radius_mult,
+                self.cam, self.cfg.orb.scale_factor, self.cfg.orb.n_levels)
+            assoc = res.assoc.cpu().numpy()
+            visible = info.visible.cpu().numpy()
+            step = None
 
         newly = assoc >= 0
         fr.pt_ids[newly] = pt_ids[assoc[newly]]
         # visibility counters (SearchLocalPoints)
-        self.map.increase_visible(pt_ids[visible[:n_local]])
+        m.increase_visible(pt_ids[visible[:n_local]])
 
-        ok = self._apply_pose_result(fr, step, min_inliers)
+        if step is not None:
+            ok = self._apply_pose_result(fr, step, min_inliers)
+        else:
+            ok = self._optimize_frame_pose(fr, min_inliers, aux_pos=aux_pos,
+                                           aux_mask=aux_mask)
         if ok:
             tracked = fr.pt_ids[(fr.pt_ids >= 0) & ~fr.is_outlier]
             self.map.increase_found(tracked)
@@ -769,14 +1111,22 @@ class Tracker:
         return True
 
     # ------------------------------------------------------------------
-    def _optimize_frame_pose(self, fr: frame_mod.Frame, min_inliers: int) -> bool:
+    def _optimize_frame_pose(self, fr: frame_mod.Frame, min_inliers: int,
+                             aux_pos: Optional[np.ndarray] = None,
+                             aux_mask: Optional[np.ndarray] = None) -> bool:
+        """aux_pos/aux_mask: per-slot world positions of observations that
+        are not map points (localization-mode temporal points)."""
         has_pt = fr.pt_ids >= 0
-        if has_pt.sum() < 4:
+        used = has_pt if aux_mask is None else (has_pt | aux_mask)
+        if used.sum() < 4:
             return False
         pos = np.zeros((fr.n, 3), np.float32)
         pos[has_pt] = self.map.pt_pos[fr.pt_ids[has_pt]]
+        if aux_mask is not None:
+            sel = aux_mask & ~has_pt
+            pos[sel] = aux_pos[sel]
         obs = kernels.build_pose_obs_from_frame(
-            fr.kp, fr.ur, self._dev(pos), self._dev(has_pt),
+            fr.kp, fr.ur, self._dev(pos), self._dev(used),
             self.cfg.orb.scale_factor)
         tcw, inlier, n_in = pose_opt.pose_optimization(
             self._dev(fr.tcw), obs, self.cam)
@@ -927,10 +1277,13 @@ class Tracker:
         pose per frame, lost frames carried forward). For TUM export, which
         skips lost frames, pair with `trajectory_lost_mask`.
 
-        Waits for the mapping worker to drain first and reads under the map
-        lock; `wait=False` gives a snapshot without waiting."""
-        if wait and self.mapping_worker is not None:
-            self.mapping_worker.wait_idle()
+        Applies the frames in flight and waits for the mapping worker to
+        drain first, and reads under the map lock; `wait=False` gives a
+        snapshot without waiting."""
+        if wait:
+            self.flush_frames()
+            if self.mapping_worker is not None:
+                self.mapping_worker.wait_idle()
         with self.map_lock:
             return self._full_trajectory_twc_locked()
 
@@ -950,5 +1303,7 @@ class Tracker:
         return np.stack(out)
 
     def trajectory_lost_mask(self) -> np.ndarray:
-        """[F] bool: frame was lost. The TUM saver drops these rows."""
+        """[F] bool: frame was lost, after the frames in flight are applied.
+        The TUM saver drops these rows."""
+        self.flush_frames()
         return np.array([e.lost for e in self.trajectory], bool)

@@ -226,27 +226,60 @@ def launch_empty_kernel(table: LevelTable, scratch: torch.Tensor) -> None:
         raise RuntimeError(f"orient_describe_launch_empty failed: CUDA error {err}")
 
 
-def fused_orient_describe_plain(raw: torch.Tensor, blur: torch.Tensor,
-                                ys: torch.Tensor, xs: torch.Tensor,
-                                pattern: torch.Tensor
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: the same arithmetic in tensor
-    ops (gather 31x31 patches, disc-weighted sums, rotate, round half to
-    even, index, compare, pack). Works on any device."""
-    from orbslam2_tpu_torch.ops.orb import pack_bits
-
-    h, w = raw.shape
-    dev = raw.device
-    y = ys.long().clamp(HALF_PATCH, h - 1 - HALF_PATCH)
-    x = xs.long().clamp(HALF_PATCH, w - 1 - HALF_PATCH)
-
-    off = torch.arange(-HALF_PATCH, HALF_PATCH + 1, device=dev)
+def _moments_plain(raw: torch.Tensor, y: torch.Tensor, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intensity-centroid moments (m10, m01) over the radius-15 disc around
+    each (y, x), already clamped inside the margin, in the kernel's order
+    (the note in csrc/orient_describe.cu): per column dx = -15..15 the disc's
+    rows summed in row order, ``col_sum += v`` and ``m01 = fma(dy, v, m01)``;
+    then ``m10 = dx * col_sum``; then the 32 columns (the 32nd empty) halved
+    five times, column i adding column i + half. The fused multiply-add is
+    taken in float64 and rounded once to float32: ``dy * v`` is exact there,
+    and so is its sum with ``m01`` while every pixel is 0 or in [2^-8, 255]
+    (the bits then span under 53); below 2^-8 the float64 sum may round
+    first, which changes the float32 result only where it lands on a float32
+    midpoint. Every other sum and product rounds on its own, so the result
+    is the kernel's bit for bit. A pixel outside the disc enters as v = 0,
+    which adds exactly nothing: the sums start at +0 and never become -0."""
+    w = raw.shape[1]
+    off = torch.arange(-HALF_PATCH, HALF_PATCH + 1, device=raw.device)
     dyy, dxx = torch.meshgrid(off, off, indexing="ij")          # [31, 31]
     disc = (dxx * dxx + dyy * dyy) <= HALF_PATCH * HALF_PATCH
     idx = (y[:, None, None] + dyy) * w + (x[:, None, None] + dxx)
     patches = raw.reshape(-1)[idx] * disc.to(raw.dtype)          # [K, 31, 31]
-    m10 = (patches.sum(dim=1) * off.to(raw.dtype)).sum(dim=1)
-    m01 = (patches * dyy.to(raw.dtype)).sum(dim=(1, 2))
+    k = patches.shape[0]
+    col_sum = torch.zeros(k, 32, dtype=raw.dtype, device=raw.device)
+    m01 = torch.zeros(k, 32, dtype=raw.dtype, device=raw.device)
+    for r in range(PATCH):
+        v = patches[:, r, :]
+        col_sum[:, :PATCH] = col_sum[:, :PATCH] + v
+        m01[:, :PATCH] = (m01[:, :PATCH].double() + v.double() * float(r - HALF_PATCH)
+                          ).to(raw.dtype)
+    dx = torch.cat([off, off.new_tensor([HALF_PATCH + 1])]).to(raw.dtype)
+    m10 = col_sum * dx
+    half = 16
+    while half:
+        m10 = m10[:, :half] + m10[:, half:2 * half]
+        m01 = m01[:, :half] + m01[:, half:2 * half]
+        half //= 2
+    return m10[:, 0], m01[:, 0]
+
+
+def fused_orient_describe_plain(raw: torch.Tensor, blur: torch.Tensor,
+                                ys: torch.Tensor, xs: torch.Tensor,
+                                pattern: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: the same arithmetic, rounded in
+    the same order, in tensor ops (gather 31x31 patches, the moments of
+    ``_moments_plain``, rotate, round half to even, index, compare, pack).
+    Works on any device; on the card it gives the kernel's outputs bit for
+    bit."""
+    from orbslam2_tpu_torch.ops.orb import pack_bits
+
+    h, w = raw.shape
+    y = ys.long().clamp(HALF_PATCH, h - 1 - HALF_PATCH)
+    x = xs.long().clamp(HALF_PATCH, w - 1 - HALF_PATCH)
+    m10, m01 = _moments_plain(raw, y, x)
 
     r2 = m10 * m10 + m01 * m01
     inv_r = torch.rsqrt(torch.clamp(r2, min=1e-12))

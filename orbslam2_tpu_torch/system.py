@@ -10,11 +10,13 @@ Every keyframe is mapped (triangulation, fusion, local BA, culling) and,
 with a vocabulary, goes through loop detection and correction, on the
 worker's thread or inline at insertion; a lost tracker relocalizes through
 the keyframe database. RGB-D (``track_rgbd``) and stereo (``track_stereo``,
-rectified pairs) are ported; the loop closer solves with fixed scale for
-both. Still refused with a NotImplementedError naming the ROADMAP item: the
-monocular sensor, localization mode, and the pipelined or batched fetch
-(``SLAMConfig.pipelined_fetch=True``, ``fetch_batch > 1``); nothing is
-ignored silently.
+rectified pairs) are ported, with every ``SLAMConfig`` default (the
+pipelined and batched fetch among them); the loop closer solves with fixed
+scale for both. Localization mode (``activate_localization_mode``: track
+against a frozen map, on temporal visual-odometry points where the map ends),
+a global bundle adjustment on request and a change of calibration are there
+too. Still refused with a NotImplementedError naming the ROADMAP item: the
+monocular sensor and ``mono_async_mapping``; nothing is ignored silently.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from orbslam2_tpu_torch.frontend.loop_closing import LoopCloser, LoopCloserConfi
 from orbslam2_tpu_torch.frontend.orchestrator import MappingWorker
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
 from orbslam2_tpu_torch.io import trajectory as traj_io
+from orbslam2_tpu_torch.ops.orb import ORBExtractor
 from orbslam2_tpu_torch.slammap.keyframe_db import KeyFrameDatabase
 from orbslam2_tpu_torch.slammap.mapstate import MapState
 
@@ -113,18 +116,33 @@ class SLAMSystem:
 
     # ------------------------------------------------------------------
     def activate_localization_mode(self) -> None:
-        raise _not_ported("localization mode")
+        """System::ActivateLocalizationMode: apply the frames in flight, let
+        mapping finish what is queued, then track only: no keyframe, no map
+        change."""
+        self.tracker.flush_frames()
+        self.wait_mapping_idle()
+        self.cfg.localization_only = True
+        self.tracker.cfg.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        """System::DeactivateLocalizationMode: map again."""
+        self.tracker.flush_frames()
+        self.cfg.localization_only = False
+        self.tracker.cfg.localization_only = False
 
     def reset(self) -> None:
         """System::Reset."""
+        self.tracker.flush_frames()
         self.wait_mapping_idle()
         with self.tracker.map_lock:
             self.tracker.reset()
 
     def shutdown(self) -> None:
-        """System::Shutdown: map what is queued, join the mapping worker,
-        then wait for a global BA in flight. Idempotent; raises the
-        worker's first exception once, and a failed GBA's."""
+        """System::Shutdown: apply the frames in flight, map what is queued,
+        join the mapping worker, then wait for a global BA in flight.
+        Idempotent; raises the worker's first exception once, and a failed
+        GBA's."""
+        self.tracker.flush_frames()
         worker, self.mapping_worker = self.mapping_worker, None
         if worker is not None:
             self.tracker.mapping_worker = None
@@ -164,8 +182,53 @@ class SLAMSystem:
             return np.zeros((0, 2), np.float32), np.zeros(0, bool)
         return lf.kp.xy.cpu().numpy(), (lf.pt_ids >= 0) & ~lf.is_outlier
 
+    def global_bundle_adjust(self, iters: int = 10) -> None:
+        """Full-map bundle adjustment (the reference's
+        GlobalBundleAdjustemnt): the loop closer's global BA (Schur-complement
+        PCG, staged in float64) over every valid observation, with the first
+        keyframe fixed, solved on this thread. Applies the frames in flight
+        and waits for mapping and a global BA in flight first, so that no
+        thread is joined under the map lock. Needs no vocabulary. `iters` is
+        the JAX package's argument, which its solve does not read either:
+        the solve runs the loop closer's fixed LM phases."""
+        self.tracker.flush_frames()
+        self.wait_mapping_idle()
+        gba = LoopCloser(self.map, self.cfg.cam, None,
+                         LoopCloserConfig(scale_factor=self.cfg.orb.scale_factor,
+                                          n_levels=self.cfg.orb.n_levels,
+                                          async_gba=False),
+                         device=self.device)
+        gba.stats.enabled = self.cfg.profile_stages
+        with self.tracker.map_lock:
+            ids = self.map.keyframe_ids()
+            if len(ids) < 2:
+                return
+            gba.map_lock = self.tracker.map_lock
+            gba.request_global_ba(fixed_kf=int(ids[0]))
+            self.map.change_index += 1
+
+    def change_calibration(self, cam) -> None:
+        """Tracking::ChangeCalibration: new intrinsics from the next frame,
+        for the tracker, the local mapper and the loop closer. A new image
+        size builds a new extractor (its pyramid and budgets follow the
+        size); the stereo matcher and every kernel read the camera per
+        call, and the map's device mirror holds no camera."""
+        self.tracker.flush_frames()
+        old = self.cfg.cam
+        with self.tracker.map_lock:
+            self.cfg.cam = cam
+            self.tracker.cfg.cam = cam
+            self.tracker.cam = cam
+            self.local_mapper.cam = cam
+            if self.loop_closer is not None:
+                self.loop_closer.cam = cam
+            if (cam.height, cam.width) != (old.height, old.width):
+                self.tracker.extractor = ORBExtractor(
+                    self.cfg.orb, (cam.height, cam.width), self.device)
+
     def save_map(self, path: str) -> None:
         """Persist the full map as one compressed npz."""
+        self.tracker.flush_frames()
         self.wait_mapping_idle()
         with self.tracker.map_lock:
             self.map.save(path)
@@ -173,6 +236,7 @@ class SLAMSystem:
     def load_map(self, path: str) -> None:
         """Load a saved map; the tracker then relocalizes against it."""
         loaded = MapState.load(path)
+        self.tracker.flush_frames()
         self.wait_mapping_idle()
         with self.tracker.map_lock:
             # copy arrays into the existing shared MapState instance

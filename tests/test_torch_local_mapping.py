@@ -259,6 +259,9 @@ def test_interrupt_and_backlog_skip_the_local_ba(staged, why):
     mapper.stats.enabled = True
     mapper.process_keyframe(staged["kf"])
     assert mapper.counts["ba_skipped"] == 1 and mapper.counts["ba_applied"] == 0
+    # each cause has its own counter
+    assert mapper.counts["ba_interrupted"] == (why == "interrupt")
+    assert mapper.counts["ba_backlog"] == (why == "pending")
     assert not mapper.interrupt_ba
     ran = set(mapper.stats.summary())
     assert "local_ba" not in ran and "kf_culling" not in ran and "triangulate" in ran

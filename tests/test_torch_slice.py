@@ -152,10 +152,6 @@ def test_system_accessors_and_map_roundtrip(runs, tmp_path):
 
 @pytest.mark.parametrize("kwargs,word", [
     (dict(mono_async_mapping=True), "mono"),
-    (dict(pipelined_fetch=True), "pipelined"),
-    (dict(fetch_batch=4), "fetch_batch"),
-    (dict(localization_only=True), "localization"),
-    (dict(device_local_map=False), "device_local_map"),
 ])
 def test_unported_configuration_is_refused(kwargs, word):
     cfg = dict(CFG_KW)
@@ -179,8 +175,11 @@ def test_unported_sensors_and_modes_are_refused():
         for with_voc in systems[:2]:
             assert with_voc.kfdb is not None and with_voc.loop_closer is not None
             assert with_voc.loop_closer.cfg.fix_scale
-        with pytest.raises(NotImplementedError):
-            system.activate_localization_mode()
+        # localization mode is ported: the switch goes both ways
+        system.activate_localization_mode()
+        assert system.tracker.cfg.localization_only
+        system.deactivate_localization_mode()
+        assert not system.tracker.cfg.localization_only
         with pytest.raises(NotImplementedError):
             system.track_monocular(None, 0.0)
         # each sensor takes its own images only
