@@ -1,6 +1,6 @@
 """Per-frame container: ORB features + undistorted coords + depth.
 
-Counterpart of ``orbslam2_tpu/frontend/frame.py`` (RGB-D and stereo): fixed-capacity
+Counterpart of ``orbslam2_tpu/frontend/frame.py`` (RGB-D, stereo and monocular): fixed-capacity
 masked tensors on the tracker's device for the matching and pose steps, numpy
 for host bookkeeping.
 """
@@ -154,6 +154,40 @@ def build_frame_stereo(
         extractor, cam,
         torch.as_tensor(gray_left, dtype=torch.float32).to(dev),
         torch.as_tensor(gray_right, dtype=torch.float32).to(dev))
+    n = kp.n
+    return Frame(
+        frame_id=frame_id,
+        timestamp=timestamp,
+        kp=kp,
+        ur=ur,
+        depth=depth,
+        tcw=np.eye(4, dtype=np.float32),
+        pt_ids=np.full(n, -1, np.int32),
+        is_outlier=np.zeros(n, bool),
+    )
+
+
+def _mono_build(extractor: ORBExtractor, cam: PinholeCamera, gray: torch.Tensor):
+    """Monocular frame build: ORB extraction (one describe launch) and
+    keypoint undistortion; no keypoint has a depth or a right coordinate.
+    Shared by the standalone frame build and the fused whole-frame step.
+    -> (kp with undistorted xy, ur, depth), the last two all -1."""
+    kp = extractor(gray)
+    neg = torch.full((kp.n,), -1.0, dtype=torch.float32, device=kp.xy.device)
+    return kp.replace(xy=cam.undistort_points(kp.xy)), neg, neg
+
+
+def build_frame_mono(
+    frame_id: int,
+    timestamp: float,
+    gray,
+    extractor: ORBExtractor,
+    cam: PinholeCamera,
+) -> Frame:
+    """Monocular frame on the extractor's device; the image may be a numpy
+    array or a tensor."""
+    kp, ur, depth = _mono_build(
+        extractor, cam, torch.as_tensor(gray, dtype=torch.float32).to(extractor.device))
     n = kp.n
     return Frame(
         frame_id=frame_id,

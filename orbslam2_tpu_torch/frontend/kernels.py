@@ -464,20 +464,16 @@ def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
                      pt_min, pt_max) -> FusedFrameOut:
     """The fused whole-frame step for the sensor's image tuple: frame build
     followed by `_fused_track_core`. `sensor_images` is ``("rgbd", (gray,
-    depth))`` or ``("stereo", (left, right))``; the monocular build is not
-    ported yet. `tcw_pred`: a pose or a ``(velocity, tcw_prev)`` pair
-    (`_resolve_pred`)."""
+    depth))``, ``("stereo", (left, right))`` or ``("mono", (gray,))``; a
+    monocular frame has no depth, so its keypoints enter both pose
+    optimizations as monocular observations (uR = depth = -1). `tcw_pred`:
+    a pose or a ``(velocity, tcw_prev)`` pair (`_resolve_pred`)."""
     from orbslam2_tpu_torch.frontend import frame as frame_mod
 
     kind, imgs = sensor_images
-    if kind == "rgbd":
-        kp, ur, depth = frame_mod._rgbd_build(extractor, cam, *imgs)
-    elif kind == "stereo":
-        kp, ur, depth = frame_mod._stereo_build(extractor, cam, *imgs)
-    else:
-        raise NotImplementedError(
-            f"fused frame step for sensor '{kind}' is not ported yet "
-            "(ROADMAP Queue 1: mono)")
+    build = {"rgbd": frame_mod._rgbd_build, "stereo": frame_mod._stereo_build,
+             "mono": frame_mod._mono_build}[kind]
+    kp, ur, depth = build(extractor, cam, *imgs)
     return _fused_track_core(
         kp, ur, depth, _resolve_pred(tcw_pred), last_kp, last_pid, local_ids,
         local_sel, radius_mult, pt_pos, pt_desc, pt_valid, pt_normal, pt_min,

@@ -18,6 +18,13 @@ further keyframe, and raises it again from ``insert_keyframe``,
 ``wait_idle`` and ``stop``: a mapper that fails on the card fails the run
 instead of leaving the tracker on a map that is no longer refined.
 
+With ``sync_mapping`` (a monocular system unless ``mono_async_mapping``) the
+local mapping runs inline in ``insert_keyframe``, on the tracker's thread
+under its map lock, and only the loop stage is left to the worker: the
+reference never queues a monocular keyframe behind a busy mapper, because
+triangulation is monocular's only source of points and the next frame must
+track against them.
+
 A second difference: a keyframe that local mapping culled before its loop
 stage skips the loop closer here. The JAX worker passes it on, and its loop
 closer detects loops from the dead keyframe and adds it to the keyframe
@@ -36,12 +43,16 @@ import numpy as np
 
 
 class MappingWorker:
-    def __init__(self, local_mapper, loop_closer=None, map_lock=None):
+    def __init__(self, local_mapper, loop_closer=None, map_lock=None,
+                 sync_mapping: bool = False):
         """`loop_closer`: run after the local mapper on every keyframe handed
-        off with word ids, under `map_lock` (the tracker's)."""
+        off with word ids, under `map_lock` (the tracker's).
+        `sync_mapping`: map each keyframe inline in `insert_keyframe` and
+        leave only the loop stage to the worker."""
         self.local_mapper = local_mapper
         self.loop_closer = loop_closer
         self.map_lock = map_lock if map_lock is not None else threading.RLock()
+        self.sync_mapping = sync_mapping
         self.queue: "queue.Queue" = queue.Queue()
         self._idle = threading.Event()
         self._idle.set()
@@ -51,7 +62,10 @@ class MappingWorker:
         # with a keyframe queued
         self._idle_lock = threading.Lock()
         self.error: Optional[Exception] = None
-        local_mapper.pending_fn = lambda: not self.queue.empty()
+        # inline mapping has nothing queued behind it: the loop-stage backlog
+        # never skips a local BA
+        local_mapper.pending_fn = (lambda: False) if sync_mapping else \
+            (lambda: not self.queue.empty())
         self._thread = threading.Thread(target=self._run, daemon=True,
                                          name="mapping-worker")
         self._thread.start()
@@ -65,19 +79,27 @@ class MappingWorker:
     # ------------------------------------------------------------------
     def insert_keyframe(self, kf: int, word_ids: Optional[np.ndarray] = None) -> None:
         """Tracking -> mapping handoff (LocalMapping::InsertKeyFrame);
-        `word_ids` (the keyframe's BoW words) go to the loop closer."""
+        `word_ids` (the keyframe's BoW words) go to the loop closer. With
+        `sync_mapping` the keyframe is mapped here, on the caller's thread,
+        and a failure raises here."""
         self._raise_if_failed()
+        mapped = False
+        if self.sync_mapping:
+            self.local_mapper.process_keyframe(kf)
+            mapped = True
         with self._idle_lock:
             self._idle.clear()
-            self.queue.put((kf, word_ids))
+            self.queue.put((kf, word_ids, mapped))
 
     def queue_size(self) -> int:
         return self.queue.qsize()
 
     def idle(self) -> bool:
         """Local mapping is caught up (the reference's AcceptKeyFrames true
-        and queue empty)."""
-        return self._idle.is_set()
+        and queue empty). Inline mapping is always caught up: the loop-stage
+        backlog does not hold back keyframe insertion, as the reference's
+        loop-closing queue never does."""
+        return self.sync_mapping or self._idle.is_set()
 
     def accept_keyframes(self) -> bool:
         """Do not pile up keyframes faster than the worker drains them."""
@@ -111,14 +133,15 @@ class MappingWorker:
             item = self.queue.get()
             if item is None:
                 break
-            kf, word_ids = item
+            kf, word_ids, mapped = item
             if self.error is None:
                 try:
                     # the local mapper manages its own lock scope; with a
                     # backlog its stages turn atomic, which throttles the
                     # tracker until mapping catches up
-                    self.local_mapper.process_keyframe(
-                        kf, backlog=self.queue.qsize() > 0)
+                    if not mapped:
+                        self.local_mapper.process_keyframe(
+                            kf, backlog=self.queue.qsize() > 0)
                     if self.loop_closer is not None and word_ids is not None:
                         with self.local_mapper.stats.stage("loop_closing"), \
                                 self.map_lock:

@@ -1,4 +1,5 @@
-"""Tracking front-end: per-frame pose estimation state machine (RGB-D, stereo).
+"""Tracking front-end: per-frame pose estimation state machine (RGB-D, stereo,
+monocular).
 
 Counterpart of ``orbslam2_tpu/frontend/tracking.py``. The structure mirrors
 the reference's Tracking::Track: initialization -> motion-model /
@@ -6,19 +7,20 @@ reference-keyframe tracking -> local-map tracking -> keyframe decision; every
 per-point loop is a batched device step (frontend/kernels.py) and the map is
 a flat array store (slammap/mapstate.py).
 
-What this port covers: RGB-D and stereo frames (depth from the depth image,
-or from left-right matching), initialization from depth, the classic
-two-step path, the fused whole-frame path, synchronous or pipelined (a
-frame's results are fetched and applied while the next frame runs, in
+What this port covers: RGB-D, stereo and monocular frames (depth from the
+depth image, from left-right matching, or none), initialization from depth
+or, for a monocular camera, from two views (``solvers/initializer.py``), the
+classic two-step path, the fused whole-frame path, synchronous or pipelined
+(a frame's results are fetched and applied while the next frame runs, in
 batches of ``fetch_batch`` frames), keyframe insertion with close points
 spawned from depth, local mapping and (with a vocabulary) loop closing of
-every keyframe, inline or on the mapping worker's thread, relocalization
-through the keyframe database (KFDB candidates, EPnP RANSAC and the
-reference's escalation) or, without a vocabulary, through the reference
-keyframe, localization mode with temporal visual-odometry points, the
-device-resident or host-staged local map, reset and trajectory bookkeeping.
-Only ``mono_async_mapping=True`` is refused with NotImplementedError (mono
-is ROADMAP.md, Queue 1).
+every keyframe, inline or on the mapping worker's thread (a monocular
+keyframe is mapped inline at insertion unless ``mono_async_mapping``),
+relocalization through the keyframe database (KFDB candidates, EPnP RANSAC
+and the reference's escalation) or, without a vocabulary, through the
+reference keyframe, localization mode with temporal visual-odometry points,
+the device-resident or host-staged local map, reset and trajectory
+bookkeeping. Every ``SLAMConfig`` field is implemented.
 
 The tracker owns the map lock (a re-entrant lock shared with the local
 mapper). A classic-path frame holds it throughout; a fused frame holds it
@@ -56,7 +58,8 @@ from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.ops.orb import ORBConfig, ORBExtractor
 from orbslam2_tpu_torch.slammap import covisibility
 from orbslam2_tpu_torch.slammap.mapstate import MapCapacity, MapState
-from orbslam2_tpu_torch.solvers import epnp, horn
+from orbslam2_tpu_torch.ops import match as match_ops
+from orbslam2_tpu_torch.solvers import epnp, horn, initializer
 from orbslam2_tpu_torch.utils.profiling import StageTimer
 
 
@@ -73,9 +76,7 @@ _MISSED_KEYFRAME = object()
 
 @dataclasses.dataclass
 class SLAMConfig:
-    """Same fields and defaults as the JAX package's SLAMConfig. Values that
-    select a part not ported yet are rejected, never ignored (see
-    `check_supported`)."""
+    """Same fields and defaults as the JAX package's SLAMConfig."""
     cam: PinholeCamera
     orb: ORBConfig = dataclasses.field(default_factory=ORBConfig)
     th_depth: float = 3.0           # meters; reference mThDepth = baseline*ThDepth
@@ -102,20 +103,15 @@ class SLAMConfig:
     # local-map + both pose optimizations) with ONE fetch
     # (kernels.fused_frame_step); False = two-step path per frame
     fused_frame: bool = True
-    # monocular mapping placement (inline at keyframe insertion vs queued)
+    # monocular mapping placement: False maps each keyframe inline at its
+    # insertion (triangulation is mono's only source of points, and a feed
+    # faster than the worker would starve the map); True queues it to the
+    # mapping worker like the other sensors
     mono_async_mapping: bool = False
     # overlap the frame's result fetch with the NEXT frame's dispatch
     pipelined_fetch: bool = True
     # frames per fetch round trip in pipelined mode
     fetch_batch: int = 1
-
-
-def check_supported(config: SLAMConfig) -> None:
-    """Raise for configuration values whose implementation is not ported
-    yet; each names its ROADMAP item."""
-    if config.mono_async_mapping:
-        raise NotImplementedError(
-            "not ported yet (ROADMAP.md, Queue 1): mono_async_mapping=True (mono)")
 
 
 @dataclasses.dataclass
@@ -149,7 +145,6 @@ def _host_step(step: kernels.TrackStepResult) -> SimpleNamespace:
 class Tracker:
     def __init__(self, config: SLAMConfig, map_state: Optional[MapState] = None,
                  local_mapper=None, device="cuda"):
-        check_supported(config)
         self.cfg = config
         self.cam = config.cam
         self.device = resolve_device(device)
@@ -173,6 +168,10 @@ class Tracker:
         self._map_inliers = 0
         self._covis_w: Optional[np.ndarray] = None
         self.last_reloc_frame_id: int = -1000000
+        # monocular: set by track_mono; the first frame of a two-view
+        # initialization waits in _init_ref for its partner
+        self.is_mono = False
+        self._init_ref: Optional[frame_mod.Frame] = None
         # fused-frame state: local candidate selection computed from the
         # PREVIOUS frame (one-frame lag removes the mid-frame host round
         # trip) and the device-resident carry of last frame's associations
@@ -225,8 +224,9 @@ class Tracker:
                      timestamp: float) -> Optional[np.ndarray]:
         return self._track_images("stereo", (left, right), timestamp)
 
-    def track_mono(self, gray, timestamp: float):
-        raise NotImplementedError("mono is not ported yet (ROADMAP.md, Queue 1)")
+    def track_mono(self, gray: np.ndarray, timestamp: float) -> Optional[np.ndarray]:
+        self.is_mono = True
+        return self._track_images("mono", (gray,), timestamp)
 
     # ------------------------------------------------------------------
     def _build_frame(self, kind: str, imgs, timestamp: float) -> frame_mod.Frame:
@@ -235,10 +235,13 @@ class Tracker:
                 fr = frame_mod.build_frame_rgbd(
                     self.frame_counter, timestamp, imgs[0], imgs[1],
                     self.extractor, self.cam)
-            else:
+            elif kind == "stereo":
                 fr = frame_mod.build_frame_stereo(
                     self.frame_counter, timestamp, imgs[0], imgs[1],
                     self.extractor, self.cam)
+            else:
+                fr = frame_mod.build_frame_mono(
+                    self.frame_counter, timestamp, imgs[0], self.extractor, self.cam)
         self.frame_counter += 1
         return fr
 
@@ -272,7 +275,10 @@ class Tracker:
         self._last_pid_dev = None
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
             self.state = TrackingState.NOT_INITIALIZED
-            ok = self._stereo_initialization(fr)
+            if self.is_mono:
+                ok = self._monocular_initialization(fr)
+            else:
+                ok = self._stereo_initialization(fr)
             if ok:
                 self.state = TrackingState.OK
             self._record_trajectory(fr, lost=not ok)
@@ -732,6 +738,95 @@ class Tracker:
         return True
 
     # ------------------------------------------------------------------
+    # monocular initialization (Tracking::MonocularInitialization and
+    # CreateInitialMapMonocular)
+    # ------------------------------------------------------------------
+    def _monocular_initialization(self, fr: frame_mod.Frame) -> bool:
+        """Two views: the first frame with more than 100 keypoints waits as
+        the reference; the next one is matched to it (radius 100, level 0,
+        Hamming 50, ratio 0.9) and, with at least 100 matches, solved by the
+        two-view initializer. On success: the median scene depth scaled to
+        1, two keyframes, a point for every good pair, the initial bundle
+        adjustment and the keyframe database."""
+        n_kp = int(fr.host_kp().valid.sum())
+        if self._init_ref is None:
+            if n_kp > 100:
+                self._init_ref = fr
+            return False
+        if n_kp <= 100:
+            self._init_ref = None
+            return False
+        ref = self._init_ref
+        level0 = (ref.kp.octave == 0) & ref.kp.valid
+        zeros = torch.zeros(ref.n, dtype=ref.kp.octave.dtype, device=self.device)
+        res = match_ops.windowed_match(
+            ref.kp.xy, ref.kp.desc, level0,
+            torch.full((ref.n,), 100.0, device=self.device), zeros, zeros, fr.kp,
+            max_dist=50, ratio=0.9)
+        best_kp = res.best_kp.cpu().numpy()
+        sel = best_kp >= 0
+        if int(sel.sum()) < 100:
+            self._init_ref = None  # start again from this side
+            return False
+
+        uv2 = np.zeros((ref.n, 2), np.float32)
+        uv2[sel] = fr.host_kp().xy[best_kp[sel]]
+        # through the module attributes, so that a test can hand in the
+        # JAX package's draws
+        sets = horn.draw_sample_sets(sel, 200, 8, int(fr.frame_id), self.device)
+        init = initializer.initialize_two_view(
+            ref.kp.xy, self._dev(uv2), self._dev(sel), self.cam.k_matrix(self.device), sets)
+        if not bool(init.success):
+            return False
+        good = init.good.cpu().numpy()
+        pts = init.points.cpu().numpy()
+        r21 = init.r21.cpu().numpy()
+        t21 = init.t21.cpu().numpy()
+
+        # median-depth normalization: the scene's median depth becomes 1
+        med = float(np.median(pts[good, 2]))
+        if med <= 0 or good.sum() < 50:
+            return False
+        inv_med = 1.0 / med
+        pts = pts * inv_med
+        tcw2 = np.eye(4, dtype=np.float32)
+        tcw2[:3, :3] = r21
+        tcw2[:3, 3] = t21 * inv_med
+
+        ref.tcw = np.eye(4, dtype=np.float32)
+        fr.tcw = tcw2
+        kf1 = self._insert_keyframe(ref)
+        kf2 = self._insert_keyframe(fr)
+        idx = np.where(good & sel)[0]
+        new_pts = self.map.add_points_batch(
+            pts[idx], ref.host_kp().desc[idx], kf1, int(ref.frame_id))
+        idx = idx[: len(new_pts)]
+        self.map.kf_pt[kf1, idx] = new_pts
+        self.map.kf_pt[kf2, best_kp[idx]] = new_pts
+        self.map.touch_obs()
+        ref.pt_ids[idx] = new_pts
+        fr.pt_ids[best_kp[idx]] = new_pts
+        if len(new_pts) < 50:
+            self.map.clear()
+            self._init_ref = None
+            return False
+        self.map.update_point_descriptor_and_normal(
+            new_pts, self.cfg.orb.scale_factor, self.cfg.orb.n_levels)
+        self._covis_w = covisibility.weight_matrix(self.map)
+        covisibility.assign_spanning_parent(self.map, self._covis_w, kf2)
+
+        # the initial bundle adjustment over both keyframes
+        if self.local_mapper is not None:
+            self.local_mapper._local_ba(kf2, self._covis_w)
+        if self.kfdb is not None:
+            self.kfdb.add(kf1, self._word_ids(ref))
+            self.kfdb.add(kf2, self._word_ids(fr))
+        self.ref_kf = kf2
+        self.last_kf_frame_id = fr.frame_id
+        self._init_ref = None
+        return True
+
+    # ------------------------------------------------------------------
     def _update_last_frame(self) -> None:
         """Refresh last frame's pose from its reference keyframe and, in
         localization mode, make temporal visual-odometry points of its
@@ -890,6 +985,7 @@ class Tracker:
         self.state = TrackingState.NOT_INITIALIZED
         self.velocity = None
         self.ref_kf = -1
+        self._init_ref = None
         self._covis_w = None
         self._local_ids = self._local_sel = self._local_pts = None
         self._selection_fresh = False
@@ -1164,20 +1260,28 @@ class Tracker:
         need_close = tracked_close < 100 and non_tracked_close > 70
 
         frames_since_kf = fr.frame_id - self.last_kf_frame_id
-        # conditions exactly as the reference's c1a/c1b/c1c/c2
+        # conditions exactly as the reference's c1a/c1b/c1c/c2; a monocular
+        # tracker has no c1c and a reference ratio of 0.9
         c1a = frames_since_kf >= self.cfg.max_frames_between_kf
         c1b = frames_since_kf >= self.cfg.min_frames_between_kf and mapping_idle
-        c1c = self.matches_inliers < ref_tracked * 0.25 or need_close
-        th_ref = 0.75 if n_kfs >= 2 else 0.4
+        c1c = not self.is_mono and (
+            self.matches_inliers < ref_tracked * 0.25 or need_close)
+        if self.is_mono:
+            th_ref = 0.9
+        else:
+            th_ref = 0.75 if n_kfs >= 2 else 0.4
         c2 = (self.matches_inliers < ref_tracked * th_ref or need_close) \
             and self.matches_inliers > 15
         if not ((c1a or c1b or c1c) and c2):
             return False
         if mapping_idle:
             return True
-        # mapping busy: signal the BA abort; RGB-D may queue up to 3 keyframes
+        # mapping busy: signal the BA abort; stereo and RGB-D may queue up to
+        # 3 keyframes, a monocular tracker never queues
         if self.local_mapper is not None:
             self.local_mapper.interrupt_ba = True
+        if self.is_mono:
+            return False
         return self.mapping_worker.queue_size() < 3
 
     # ------------------------------------------------------------------
@@ -1229,6 +1333,16 @@ class Tracker:
             # hand the keyframe to the background worker
             with self.stats.stage("kf_handoff"):
                 self.mapping_worker.insert_keyframe(kf, wids)
+            if self.mapping_worker.sync_mapping:
+                # the keyframe was mapped inline: its triangulated points
+                # are the monocular map's only new points, and a pipelined
+                # frame in flight was dispatched against the map before
+                # them. Left to land, its depleted inlier ratio fires the
+                # keyframe decision again and keyframes cascade (the JAX
+                # package measured 94 keyframes against 71 on the mono
+                # circuit, the capacity hit and the loop missed): the frame
+                # in flight is dispatched again against the new map
+                self._carry_wrong = True
             return
         if self.local_mapper is not None:
             self.local_mapper.process_keyframe(kf)

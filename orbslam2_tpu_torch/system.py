@@ -3,20 +3,23 @@
 Counterpart of ``orbslam2_tpu/system.py`` (the reference's
 ORB_SLAM2::System): constructs the map, the tracker and the local mapper
 and, with a vocabulary, the keyframe database and the loop closer; starts
-the mapping worker (``async_mapping``, the default) and exposes the RGB-D
-track call, reset, shutdown, map save/load and the trajectory savers.
+the mapping worker (``async_mapping``, the default) and exposes the track
+call of each sensor, reset, shutdown, map save/load and the trajectory
+savers.
 
 Every keyframe is mapped (triangulation, fusion, local BA, culling) and,
 with a vocabulary, goes through loop detection and correction, on the
 worker's thread or inline at insertion; a lost tracker relocalizes through
-the keyframe database. RGB-D (``track_rgbd``) and stereo (``track_stereo``,
-rectified pairs) are ported, with every ``SLAMConfig`` default (the
-pipelined and batched fetch among them); the loop closer solves with fixed
-scale for both. Localization mode (``activate_localization_mode``: track
-against a frozen map, on temporal visual-odometry points where the map ends),
-a global bundle adjustment on request and a change of calibration are there
-too. Still refused with a NotImplementedError naming the ROADMAP item: the
-monocular sensor and ``mono_async_mapping``; nothing is ignored silently.
+the keyframe database. The three sensors are ported: RGB-D (``track_rgbd``),
+stereo (``track_stereo``, rectified pairs) and monocular
+(``track_monocular``: a two-view initialization, a local mapper with the
+monocular branches, each keyframe mapped inline at insertion unless
+``mono_async_mapping``), with every ``SLAMConfig`` field (the pipelined and
+batched fetch among them). The loop closer solves with fixed scale for
+stereo and RGB-D and with scale (Sim3) for monocular. Localization mode
+(``activate_localization_mode``: track against a frozen map, on temporal
+visual-odometry points where the map ends), a global bundle adjustment on
+request and a change of calibration are there too.
 """
 from __future__ import annotations
 
@@ -42,10 +45,6 @@ class Sensor(enum.Enum):
     RGBD = 2
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1)")
-
-
 class SLAMSystem:
     def __init__(self, config: SLAMConfig, sensor: Sensor, vocabulary=None,
                  device="cuda"):
@@ -54,19 +53,18 @@ class SLAMSystem:
         a place.vocabulary.Vocabulary (e.g. place.pretrained's), or None to
         run without place recognition (no loop closing; relocalization then
         tries the reference keyframe only)."""
-        if sensor == Sensor.MONOCULAR:
-            raise _not_ported(f"sensor {sensor.name}")
         self.cfg = config
         self.sensor = sensor
-        # the tracker rejects unported config values and owns the map and
-        # the map lock, which the local mapper shares
+        mono = sensor == Sensor.MONOCULAR
+        # the tracker owns the map and the map lock, which the local mapper
+        # shares
         self.tracker = Tracker(config, device=device)
         self.map = self.tracker.map
         self.device = self.tracker.device
         self.local_mapper = LocalMapper(
             self.map, config.cam,
             LocalMapperConfig(scale_factor=config.orb.scale_factor,
-                              n_levels=config.orb.n_levels),
+                              n_levels=config.orb.n_levels, monocular=mono),
             device=self.device)
         self.local_mapper.stats.enabled = config.profile_stages
         self.local_mapper.map_lock = self.tracker.map_lock
@@ -80,6 +78,7 @@ class SLAMSystem:
                 self.map, config.cam, self.kfdb,
                 LoopCloserConfig(scale_factor=config.orb.scale_factor,
                                  n_levels=config.orb.n_levels,
+                                 fix_scale=not mono,
                                  async_gba=config.async_mapping),
                 device=self.device)
             self.loop_closer.stats.enabled = config.profile_stages
@@ -91,8 +90,9 @@ class SLAMSystem:
         self.tracker.loop_closer = self.loop_closer
         self.mapping_worker = None
         if config.async_mapping:
-            self.mapping_worker = MappingWorker(self.local_mapper, self.loop_closer,
-                                                self.tracker.map_lock)
+            self.mapping_worker = MappingWorker(
+                self.local_mapper, self.loop_closer, self.tracker.map_lock,
+                sync_mapping=mono and not config.mono_async_mapping)
             self.tracker.mapping_worker = self.mapping_worker
 
     # ------------------------------------------------------------------
@@ -103,8 +103,13 @@ class SLAMSystem:
             raise ValueError(f"track_rgbd on a {self.sensor.name} system")
         return self.tracker.track_rgbd(gray, depth, timestamp)
 
-    def track_monocular(self, gray, timestamp: float):
-        raise _not_ported("sensor MONOCULAR")
+    def track_monocular(self, gray: np.ndarray, timestamp: float
+                        ) -> Optional[np.ndarray]:
+        """-> Tcw or None if tracking failed (System::TrackMonocular). The
+        map's scale is the first two views' median depth."""
+        if self.sensor != Sensor.MONOCULAR:
+            raise ValueError(f"track_monocular on a {self.sensor.name} system")
+        return self.tracker.track_mono(gray, timestamp)
 
     def track_stereo(self, left: np.ndarray, right: np.ndarray, timestamp: float
                      ) -> Optional[np.ndarray]:

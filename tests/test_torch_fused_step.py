@@ -137,11 +137,3 @@ def test_search_by_descriptor_matches_jax(staged):
     np.testing.assert_array_equal(n(bk_t), n(bk_j))
     np.testing.assert_array_equal(n(bd_t), n(bd_j))
     assert (n(bk_j) >= 0).sum() > 50
-
-
-def test_fused_frame_step_rejects_other_sensors(staged):
-    """RGB-D and stereo are ported (tests/test_torch_stereo.py holds the
-    stereo step); the monocular build is not."""
-    with pytest.raises(NotImplementedError, match="mono"):
-        tk.fused_frame_step(("mono", (None,)), None, TCAM, SF, NL,
-                            *[None] * 12)

@@ -150,43 +150,43 @@ def test_system_accessors_and_map_roundtrip(runs, tmp_path):
     system.shutdown()
 
 
-@pytest.mark.parametrize("kwargs,word", [
-    (dict(mono_async_mapping=True), "mono"),
-])
-def test_unported_configuration_is_refused(kwargs, word):
-    cfg = dict(CFG_KW)
-    cfg.update(kwargs)
-    cfg = ttracking.SLAMConfig(cam=TCamera(**CAM_KW), **cfg)
-    with pytest.raises(NotImplementedError, match=word):
-        SLAMSystem(cfg, Sensor.RGBD, device="cpu")
-
-
 def test_unported_sensors_and_modes_are_refused():
+    """Every sensor is ported: a vocabulary builds the database and the loop
+    closer (fixed scale for RGB-D and stereo, Sim3 with scale for mono), a
+    monocular system has a monocular local mapper and a worker that maps
+    each keyframe inline. What is still refused is a track call of another
+    sensor's images."""
+    import dataclasses
     cfg = ttracking.SLAMConfig(cam=TCamera(**CAM_KW), **CFG_KW)
-    with pytest.raises(NotImplementedError, match="MONOCULAR"):
-        SLAMSystem(cfg, Sensor.MONOCULAR, device="cpu")
-    # place recognition and stereo are ported: a vocabulary builds the
-    # database and the loop closer, with fixed scale for stereo
-    systems = [SLAMSystem(cfg, sensor, vocabulary=get_default_vocabulary(), device="cpu")
+    voc = get_default_vocabulary()
+    systems = [SLAMSystem(cfg, sensor, vocabulary=voc, device="cpu")
                for sensor in (Sensor.RGBD, Sensor.STEREO)]
+    mono = SLAMSystem(dataclasses.replace(cfg, async_mapping=True), Sensor.MONOCULAR,
+                      vocabulary=voc, device="cpu")
     system = SLAMSystem(cfg, Sensor.RGBD, device="cpu")
-    systems.append(system)
+    systems += [mono, system]
     try:
         for with_voc in systems[:2]:
             assert with_voc.kfdb is not None and with_voc.loop_closer is not None
             assert with_voc.loop_closer.cfg.fix_scale
+            assert not with_voc.local_mapper.cfg.monocular
+        assert mono.loop_closer.cfg.fix_scale is False
+        assert mono.local_mapper.cfg.monocular
+        assert mono.mapping_worker.sync_mapping and mono.mapping_worker.idle()
         # localization mode is ported: the switch goes both ways
         system.activate_localization_mode()
         assert system.tracker.cfg.localization_only
         system.deactivate_localization_mode()
         assert not system.tracker.cfg.localization_only
-        with pytest.raises(NotImplementedError):
-            system.track_monocular(None, 0.0)
         # each sensor takes its own images only
+        with pytest.raises(ValueError, match="RGBD"):
+            system.track_monocular(None, 0.0)
         with pytest.raises(ValueError, match="RGBD"):
             system.track_stereo(None, None, 0.0)
         with pytest.raises(ValueError, match="STEREO"):
             systems[1].track_rgbd(None, None, 0.0)
+        with pytest.raises(ValueError, match="MONOCULAR"):
+            mono.track_stereo(None, None, 0.0)
     finally:
         for s in systems:
             s.shutdown()
