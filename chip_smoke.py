@@ -152,6 +152,28 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             (EPnP runs), within 0.1 in rotation and 0.15 in translation of
             the map's own estimate
 
+18. drivers the dataset drivers (python -m orbslam2_tpu_torch.examples.*) run in
+            process with --device cuda and --eval on sequences the port's
+            own PNG writer puts into a temporary directory, each with one
+            kernel launch per frame build (and per frame built or
+            dispatched again). 18a: phase 5's 60 frames as a TUM RGB-D
+            sequence (DepthMapFactor 5000, a TUM1-layout settings file,
+            the largest shipped vocabulary) through rgbd_tum: no frame lost
+            after initialisation, ATE at most 0.10 m, printed beside phase
+            14's. 18b: the first 100 frames of phase 12's drive as a KITTI
+            sequence (image_0, image_1, times.txt, poses.txt) through
+            stereo_kitti with its capacity hint (2048 x 200 000): tracking
+            before frame 20, none lost after, ATE under 0.25 m. 18c: the
+            EuRoC rectifier at 752x480 with a distorted, rotated
+            calibration (card and CPU images identical, ms a pair; its
+            maps are held to cv2's by the tests), then stereo_euroc on 40
+            frames with an identity rectification: tracked before frame 20,
+            none lost after. 18d: phase 17a's drive in TUM layout through
+            mono_tum with --eval-scale, held to 17a's limits. 18e: the
+            default vocabulary's corpus extracted on the card, trained on
+            the card and on the CPU: identical trees; both times, and the
+            share of a held-out frame's words equal to the shipped tree's
+
 Then one JSON line {"kernels": [...]} (phase 3's numbers and phase 5's
 launches at its top level, phase 13's 16-level launch and phase 12's launches
 under "stereo_16_levels", every drive's launches under "launches_by_path"),
@@ -171,6 +193,7 @@ import time
 
 import numpy as np
 import torch
+from scipy.spatial.transform import Rotation
 
 from orbslam2_tpu_torch.backend import ba
 from orbslam2_tpu_torch.backend import pose_graph
@@ -179,9 +202,12 @@ from orbslam2_tpu_torch.frontend import tracking as tracking_mod
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
 from orbslam2_tpu_torch.frontend.triangulation import triangulate_neighbors
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
+from orbslam2_tpu_torch.examples import mono_tum, rgbd_tum, stereo_euroc, stereo_kitti
+from orbslam2_tpu_torch.io import datasets, png
 from orbslam2_tpu_torch.io.evaluate import ate_rmse, rpe
-from orbslam2_tpu_torch.io.synthetic import SyntheticSequence
+from orbslam2_tpu_torch.io.synthetic import SyntheticSequence, make_texture
 from orbslam2_tpu_torch.ops import cuda_orb, orb, stereo
+from orbslam2_tpu_torch.place import pretrained, vocabulary
 from orbslam2_tpu_torch.place.pretrained import get_large_vocabulary
 from orbslam2_tpu_torch.slammap import covisibility, native, point_stats
 from orbslam2_tpu_torch.slammap.device_map import FIELDS as DEVICE_MIRROR_FIELDS
@@ -237,9 +263,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# modules the card's machine does not have: the port needs none of them
+FORBIDDEN_MODULES = ("jax", "orbslam2_tpu", "cv2", "PIL", "yaml", "imageio")
+
+
 def check_no_jax(when: str) -> None:
-    if "jax" in sys.modules or "orbslam2_tpu" in sys.modules:
-        fail(f"the port imported jax or the JAX package ({when})")
+    found = [m for m in FORBIDDEN_MODULES if m in sys.modules]
+    if found:
+        fail(f"the port imported {found} ({when})")
 
 
 def hamming_rows(a: torch.Tensor, b: torch.Tensor) -> np.ndarray:
@@ -2256,6 +2287,392 @@ def check_mono_relocalization(system, seq, first_ok) -> dict:
                 ms=ms, launches=launches)
 
 
+# ---- phase 18: the dataset drivers ------------------------------------------
+# every sequence is written by the port's own writer into a temporary
+# directory and read back by the drivers, in process, with --device cuda
+TUM_DRIVER_ATE_MAX_M = ATE_MAX_M       # phase 5's limit
+N_FRAMES_KITTI_DRIVER = 100            # the first frames of phase 12's drive
+EUROC_SHAPE = (480, 752)
+N_FRAMES_EUROC = 40
+EUROC_INIT_BY = 20
+# EuRoC's own settings (Examples/Stereo/EuRoC.yaml): the rectified camera
+EUROC_CAM = dict(fx=435.2046959714599, fy=435.2046959714599, cx=367.4517211914062,
+                 cy=252.2008514404297, width=752, height=480, bf=47.90639384423901)
+RECTIFY_TIMED_PAIRS = 20
+
+
+def _settings_lines(cam, orb_cfg, fps, th_depth_units, extra=()) -> list:
+    """A reference-format settings file (Examples/RGB-D/TUM1.yaml's layout)."""
+    return ["%YAML:1.0", "", "# Camera calibration and distortion parameters (OpenCV)",
+            f"Camera.fx: {cam.fx!r}", f"Camera.fy: {cam.fy!r}", f"Camera.cx: {cam.cx!r}",
+            f"Camera.cy: {cam.cy!r}", "", "Camera.k1: 0.0", "Camera.k2: 0.0",
+            "Camera.p1: 0.0", "Camera.p2: 0.0", "",
+            f"Camera.width: {cam.width}", f"Camera.height: {cam.height}", "",
+            "# Camera frames per second", f"Camera.fps: {fps!r}", "",
+            "# IR projector baseline times fx (aprox.)", f"Camera.bf: {cam.bf!r}", "",
+            "# Color order of the images (0: BGR, 1: RGB)", "Camera.RGB: 1", "",
+            "# Close/Far threshold. Baseline times.", f"ThDepth: {th_depth_units!r}", "",
+            f"ORBextractor.nFeatures: {orb_cfg.n_features}",
+            f"ORBextractor.scaleFactor: {orb_cfg.scale_factor!r}",
+            f"ORBextractor.nLevels: {orb_cfg.n_levels}",
+            f"ORBextractor.iniThFAST: {int(orb_cfg.ini_th_fast)}",
+            f"ORBextractor.minThFAST: {int(orb_cfg.min_th_fast)}", *extra]
+
+
+def write_settings(path, lines) -> str:
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def opencv_matrix(name, m) -> list:
+    m = np.asarray(m, np.float64)
+    data = ", ".join(f"{x:.17g}" for x in m.reshape(-1))
+    return [f"{name}: !!opencv-matrix", f"   rows: {m.shape[0]}", f"   cols: {m.shape[1]}",
+            "   dt: d", f"   data: [{data}]"]
+
+
+def euroc_rectification(left, right, shape) -> list:
+    """The LEFT./RIGHT. keys of Examples/Stereo/EuRoC.yaml: (K, D, R, P) a side."""
+    out = []
+    for side, (k, d, r, p) in (("LEFT", left), ("RIGHT", right)):
+        out += [f"{side}.height: {shape[0]}", f"{side}.width: {shape[1]}",
+                *opencv_matrix(f"{side}.D", np.reshape(d, (1, -1))),
+                *opencv_matrix(f"{side}.K", k), *opencv_matrix(f"{side}.R", r),
+                *opencv_matrix(f"{side}.P", p)]
+    return out
+
+
+def run_driver(name, module, argv, n_frames) -> tuple:
+    """One example main's main(argv) in process, the kernel's launch count set to 0
+    just before and read just after: one launch per frame build, and one
+    for each frame built again or dispatched again. -> (system, the --eval
+    result, entries)."""
+    print(f"  python -m {module.__name__} {' '.join(os.path.basename(a) for a in argv)}",
+          flush=True)
+    cuda_orb.fused_orient_describe.launches = 0
+    t0 = time.perf_counter()
+    system, evaluation = module.main(argv)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = cuda_orb.fused_orient_describe.launches
+    tracker = system.tracker
+    card = torch.device(CARD).type
+    if system.device.type != card or tracker.extractor.device.type != card:
+        fail(f"{name}: the system {module.__name__} built is not on the card")
+    lost = tracker.trajectory_lost_mask()
+    if len(lost) != n_frames:
+        fail(f"{name}: {len(lost)} trajectory entries for {n_frames} frames")
+    if launches != n_frames + tracker.rebuilt_frames + tracker.retracked_frames:
+        fail(f"{name}: {launches} kernel launches, expected {n_frames} frame builds + "
+             f"{tracker.retracked_frames} dispatched again + {tracker.rebuilt_frames} rebuilt")
+    ok_at = np.flatnonzero(~lost)
+    if not len(ok_at):
+        fail(f"{name}: no frame was tracked")
+    first = int(ok_at[0])
+    if evaluation is None:
+        fail(f"{name}: the driver printed no evaluation")
+    return system, evaluation, dict(
+        launches=launches, first_ok=first, tracked=int(len(ok_at)),
+        lost_after_init=(np.flatnonzero(lost[first:]) + first).tolist(),
+        redispatched=tracker.retracked_frames, rebuilt=tracker.rebuilt_frames,
+        keyframes=int(system.map.n_keyframes()), points=int(system.map.n_points()),
+        seconds=seconds, ms_per_frame=seconds / n_frames * 1e3, eval=evaluation)
+
+
+def outputs(tmp, name) -> list:
+    return ["--trajectory-out", os.path.join(tmp, f"{name}_trajectory.txt"),
+            "--kf-trajectory-out", os.path.join(tmp, f"{name}_keyframes.txt")]
+
+
+class Rendered:
+    """A sequence whose frames were rendered already, for
+    datasets.export_synthetic_tum (which reads n_frames, fps, poses and
+    render(i))."""
+
+    def __init__(self, seq, frames):
+        self.n_frames, self.fps, self.poses = len(frames), seq.fps, seq.poses
+        self._frames = frames
+
+    def render(self, i):
+        return self._frames[i]
+
+
+def drive_driver_tum(cam, orb_cfg, seq, frames, tmp, ate_defaults) -> dict:
+    """18a: phase 5's 60 frames written as a TUM RGB-D sequence and run
+    through rgbd_tum with the default configuration and vocabulary."""
+    seq = Rendered(seq, frames)
+    root = os.path.join(tmp, "tum")
+    t0 = time.perf_counter()
+    assoc = datasets.export_synthetic_tum(seq, root)
+    write_s = time.perf_counter() - t0
+    # ThDepth 78 at bf 40 and fx 520: phase 5's th_depth of 6 m
+    settings = write_settings(os.path.join(tmp, "TUM_synthetic.yaml"), _settings_lines(
+        cam, orb_cfg, 30.0, 78.0, ["", "DepthMapFactor: 5000.0", "",
+                                   "Map.MaxKeyFrames: 64", "Map.MaxPoints: 16384"]))
+    print(f"[driver tum] rgbd_tum on phase 5's {seq.n_frames} frames written as TUM RGB-D PNGs "
+          f"in {write_s:.1f} s ({geometry(cam, orb_cfg)}, DepthMapFactor 5000, the largest "
+          f"shipped vocabulary)", flush=True)
+    system, ev, d = run_driver("driver tum", rgbd_tum, [
+        settings, root, assoc, "--device", CARD, "--eval",
+        os.path.join(root, "groundtruth.txt"), *outputs(tmp, "tum")], seq.n_frames)
+    print(f"  frames tracked {d['tracked']}/{seq.n_frames} from frame {d['first_ok']}, lost after "
+          f"{d['lost_after_init']}; keyframes {d['keyframes']}, points {d['points']}; ATE-RMSE "
+          f"{ev['ate_rmse_m']:.4f} m (phase 14, the same drive from rendered frames: "
+          f"{ate_defaults:.4f} m), RPE {ev['rpe_trans_m']:.4f} m; {d['ms_per_frame']:.2f} ms a "
+          f"frame with PNG decoding; kernel launches {d['launches']} ({d['redispatched']} "
+          f"dispatched again, {d['rebuilt']} rebuilt)", flush=True)
+    if d["lost_after_init"]:
+        fail(f"driver tum: frames {d['lost_after_init']} lost after initialisation")
+    if not ev["ate_rmse_m"] <= TUM_DRIVER_ATE_MAX_M:
+        fail(f"driver tum: ATE {ev['ate_rmse_m']} m, limit {TUM_DRIVER_ATE_MAX_M}")
+    if system.vocabulary is None or system.vocabulary.n_words != 10000:
+        fail("driver tum: the driver did not load the 10 000-word vocabulary")
+    return dict(d, write_s=write_s, ate_phase14_m=ate_defaults)
+
+
+def drive_driver_kitti(seq, frames, tmp) -> dict:
+    """18b: the first 100 frames of phase 12's drive written as a KITTI
+    odometry sequence (image_0/, image_1/, times.txt, poses.txt) and run
+    through stereo_kitti with its capacity hint."""
+    root = os.path.join(tmp, "kitti", "00")
+    os.makedirs(os.path.join(root, "image_0"))
+    os.makedirs(os.path.join(root, "image_1"))
+    t0 = time.perf_counter()
+    for i, (left, right) in enumerate(frames[:N_FRAMES_KITTI_DRIVER]):
+        for sub, img in (("image_0", left), ("image_1", right)):
+            png.imwrite(os.path.join(root, sub, f"{i:06d}.png"),
+                        np.clip(np.round(img), 0, 255).astype(np.uint8))
+    np.savetxt(os.path.join(root, "times.txt"),
+               np.arange(N_FRAMES_KITTI_DRIVER) / seq.fps, fmt="%.6e")
+    np.savetxt(os.path.join(root, "poses.txt"), np.stack(
+        [np.linalg.inv(seq.poses[i])[:3, :4].reshape(-1)
+         for i in range(N_FRAMES_KITTI_DRIVER)]), fmt="%.9e")
+    write_s = time.perf_counter() - t0
+    cam = PinholeCamera(**KITTI_CAM)
+    settings = write_settings(os.path.join(tmp, "KITTI_synthetic.yaml"), _settings_lines(
+        cam, orb.ORBConfig(**KITTI_ORB), 10.0, 40.0))
+    print(f"[driver kitti] stereo_kitti on the first {N_FRAMES_KITTI_DRIVER} frames of phase "
+          f"12's drive written as KITTI PNGs in {write_s:.1f} s (1241x376, bf 386.1448, "
+          f"ThDepth 40, 2000 features, 8 levels, capacity hint 2048 keyframes x 200 000 "
+          f"points)", flush=True)
+    system, ev, d = run_driver("driver kitti", stereo_kitti, [
+        settings, root, "--device", CARD, "--eval", os.path.join(root, "poses.txt"),
+        "--kitti-trajectory-out", os.path.join(tmp, "kitti_trajectory_kitti.txt"),
+        *outputs(tmp, "kitti")], N_FRAMES_KITTI_DRIVER)
+    cap = system.map.cap
+    print(f"  frames tracked {d['tracked']}/{N_FRAMES_KITTI_DRIVER} from frame "
+          f"{d['first_ok']}, lost after {d['lost_after_init']}; keyframes {d['keyframes']}, "
+          f"points {d['points']} of {cap.max_points}; ATE-RMSE {ev['ate_rmse_m']:.4f} m "
+          f"(index association, {ev['n_associated']} frames); {d['ms_per_frame']:.2f} ms a "
+          f"frame with PNG decoding; kernel launches {d['launches']}", flush=True)
+    if d["first_ok"] >= STEREO_INIT_BY:
+        fail(f"driver kitti: tracking started at frame {d['first_ok']}")
+    if d["lost_after_init"]:
+        fail(f"driver kitti: frames {d['lost_after_init']} lost after initialisation")
+    if not ev["ate_rmse_m"] < STEREO_ATE_MAX_M:
+        fail(f"driver kitti: ATE {ev['ate_rmse_m']} m, limit {STEREO_ATE_MAX_M}")
+    if cap.max_points != 200_000 or cap.max_keyframes != 2048:
+        fail(f"driver kitti: capacity {cap.max_keyframes} x {cap.max_points}, not the hint")
+    return dict(d, write_s=write_s)
+
+
+def check_rectifier(tmp) -> dict:
+    """18c, first part: the EuRoC rectifier at 752x480 with a distorted and
+    rotated calibration shaped like Examples/Stereo/EuRoC.yaml's: its images
+    on the card against the CPU, and its milliseconds per pair on the card.
+    Its maps are held against cv2.initUndistortRectifyMap and the closed form
+    at this calibration by tests/test_torch_io.py."""
+    k_l = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1]])
+    k_r = np.array([[457.587, 0, 379.999], [0, 456.134, 255.238], [0, 0, 1]])
+    p = np.array([[435.2046, 0, 367.4517, 0], [0, 435.2046, 252.2004, 0], [0, 0, 1, 0]])
+    left = (k_l, np.array([-0.2834, 0.0739, 0.00019, 1.76e-5]),
+            Rotation.from_rotvec([0.003, -0.002, 0.001]).as_matrix(), p)
+    right = (k_r, np.array([-0.2836, 0.0745, -0.00011, -5.7e-5]),
+             Rotation.from_rotvec([-0.002, 0.0025, -0.0008]).as_matrix(), p)
+    cam = PinholeCamera(**EUROC_CAM)
+    path = write_settings(os.path.join(tmp, "EuRoC_distorted.yaml"), _settings_lines(
+        cam, orb.ORBConfig(n_features=1200, n_levels=8), 20.0, 35.0,
+        euroc_rectification(left, right, EUROC_SHAPE)))
+    t0 = time.perf_counter()
+    rect = datasets.EurocRectifier(path, device=CARD)
+    maps_s = time.perf_counter() - t0
+    rect_cpu = datasets.EurocRectifier(path, device="cpu")
+    rng = np.random.default_rng(18)
+    raw = [np.clip(rng.normal(128, 60, EUROC_SHAPE), 0, 255).astype(np.uint8)
+           for _ in range(2)]
+    card, cpu = rect(*raw), rect_cpu(*raw)
+    differ = int(sum((a != b).sum() for a, b in zip(card, cpu)))
+    outside = int(sum((a == 0).sum() for a in card))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RECTIFY_TIMED_PAIRS):
+        rect(*raw)                       # numpy in, numpy out: ends in a fetch
+    ms_pair = (time.perf_counter() - t0) / RECTIFY_TIMED_PAIRS * 1e3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        rect_cpu(*raw)
+    ms_pair_cpu = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"[driver euroc] EurocRectifier at 752x480, distorted and rotated calibration: "
+          f"maps built in {maps_s * 1e3:.1f} ms on the host; card vs CPU images: "
+          f"{differ} pixels differ ({outside} outside the source, 0); {ms_pair:.3f} ms a "
+          f"pair on the card (host to card and back included), {ms_pair_cpu:.3f} ms on the "
+          f"host's CPU", flush=True)
+    if differ:
+        fail(f"driver euroc: {differ} rectified pixels differ between card and CPU")
+    return dict(card_cpu_pixels_differ=differ, ms_per_pair=ms_pair,
+                ms_per_pair_cpu=ms_pair_cpu, maps_ms=maps_s * 1e3)
+
+
+def drive_driver_euroc(tmp) -> dict:
+    """18c, second part: a 752x480 stereo sequence of 40 frames written in
+    EuRoC's layout (mav0/cam0/data, mav0/cam1/data, a timestamps list) with
+    an identity rectification in EuRoC's YAML, through stereo_euroc."""
+    cam = PinholeCamera(**EUROC_CAM)
+    seq = SyntheticSequence(cam, n_frames=N_FRAMES_EUROC, trajectory="lateral", seed=6,
+                            world="cluttered")
+    root = os.path.join(tmp, "euroc", "mav0")
+    lines = ["#timestamp [ns]"]
+    t0_ns = 1403636579763555584
+    t0 = time.perf_counter()
+    for i, (left, right) in enumerate(render_stereo_frames(seq, N_FRAMES_EUROC)):
+        ts = t0_ns + int(round(i / seq.fps * 1e9))
+        for sub, img in (("cam0", left), ("cam1", right)):
+            os.makedirs(os.path.join(root, sub, "data"), exist_ok=True)
+            png.imwrite(os.path.join(root, sub, "data", f"{ts}.png"),
+                        np.clip(np.round(img), 0, 255).astype(np.uint8))
+        lines.append(f"{ts}")
+    ts_path = os.path.join(tmp, "euroc", "timestamps.txt")
+    with open(ts_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    write_s = time.perf_counter() - t0
+    k = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1]])
+    ident = (k, np.zeros(5), np.eye(3), np.hstack([k, np.zeros((3, 1))]))
+    settings = write_settings(os.path.join(tmp, "EuRoC_identity.yaml"), _settings_lines(
+        cam, orb.ORBConfig(n_features=1200, n_levels=8), 20.0, 35.0,
+        ["", *euroc_rectification(ident, ident, EUROC_SHAPE)]))
+    gt = os.path.join(tmp, "euroc", "groundtruth.txt")
+    with open(gt, "w") as f:      # TUM format, in seconds as stereo_euroc stamps frames
+        for i in range(N_FRAMES_EUROC):
+            twc = np.linalg.inv(seq.poses[i])
+            q = datasets._rot_to_quat(twc[:3, :3])
+            ts = (t0_ns + int(round(i / seq.fps * 1e9))) * 1e-9
+            f.write(f"{ts:.9f} " + " ".join(f"{x:.9f}" for x in (*twc[:3, 3], *q)) + "\n")
+    print(f"  stereo_euroc on {N_FRAMES_EUROC} frames of the lateral sequence (cluttered "
+          f"world, seed 6) written in EuRoC's layout in {write_s:.1f} s, EuRoC.yaml's camera "
+          f"(1200 features, 8 levels, ThDepth 35) with an identity rectification",
+          flush=True)
+    _, ev, d = run_driver("driver euroc", stereo_euroc, [
+        settings, root, ts_path, "--device", CARD, "--eval", gt,
+        *outputs(tmp, "euroc")], N_FRAMES_EUROC)
+    print(f"  frames tracked {d['tracked']}/{N_FRAMES_EUROC} from frame {d['first_ok']}, lost "
+          f"after {d['lost_after_init']}; keyframes {d['keyframes']}; ATE-RMSE "
+          f"{ev['ate_rmse_m']:.4f} m; {d['ms_per_frame']:.2f} ms a frame with PNG decoding "
+          f"and rectification; kernel launches {d['launches']}", flush=True)
+    if d["first_ok"] >= EUROC_INIT_BY or d["lost_after_init"]:
+        fail(f"driver euroc: tracked from frame {d['first_ok']}, lost after "
+             f"{d['lost_after_init']}")
+    return dict(d, write_s=write_s)
+
+
+def drive_driver_mono(cam, orb_cfg, tmp) -> dict:
+    """18d: phase 17a's lateral drive written in TUM layout, through mono_tum
+    with --eval-scale and no vocabulary (17a has none), held to 17a's
+    limits."""
+    seq = SyntheticSequence(cam, n_frames=N_FRAMES_MONO, trajectory="lateral", seed=5)
+    root = os.path.join(tmp, "tum_mono")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        frames = list(pool.map(seq.render, range(N_FRAMES_MONO)))
+    assoc = datasets.export_synthetic_tum(Rendered(seq, frames), root)
+    write_s = time.perf_counter() - t0
+    # fps 10: 17a's max_frames_between_kf
+    settings = write_settings(os.path.join(tmp, "TUM_mono.yaml"), _settings_lines(
+        cam, orb_cfg, 10.0, 40.0, ["", "Map.MaxKeyFrames: 64", "Map.MaxPoints: 16384"]))
+    print(f"[driver mono] mono_tum on phase 17a's {N_FRAMES_MONO} frames written in TUM "
+          f"layout in {write_s:.1f} s ({geometry(cam, orb_cfg)}, no vocabulary, Sim3 "
+          f"evaluation)", flush=True)
+    _, ev, d = run_driver("driver mono", mono_tum, [
+        settings, root, assoc, "--device", CARD, "--no-loop-closing", "--eval",
+        os.path.join(root, "groundtruth.txt"), "--eval-scale", *outputs(tmp, "mono")],
+        N_FRAMES_MONO)
+    print(f"  initialized at frame {d['first_ok']}; frames tracked {d['tracked']}/"
+          f"{N_FRAMES_MONO}, lost after {d['lost_after_init']}; keyframes {d['keyframes']}, "
+          f"points {d['points']}; ATE-RMSE {ev['ate_rmse_m']:.4f} m after Sim3 alignment; "
+          f"{d['ms_per_frame']:.2f} ms a frame with PNG decoding; kernel launches "
+          f"{d['launches']} ({d['redispatched']} dispatched again)", flush=True)
+    if d["first_ok"] >= MONO_INIT_BEFORE:
+        fail(f"driver mono: initialized at frame {d['first_ok']}")
+    if len(d["lost_after_init"]) > MONO_LOST_MAX:
+        fail(f"driver mono: frames {d['lost_after_init']} lost after initialization")
+    if d["keyframes"] < MONO_MIN_KEYFRAMES or d["points"] <= MONO_MIN_POINTS:
+        fail(f"driver mono: {d['keyframes']} keyframes and {d['points']} points")
+    if not (ev["scale_aligned"] and ev["ate_rmse_m"] < MONO_ATE_MAX_M):
+        fail(f"driver mono: ATE {ev['ate_rmse_m']} m, limit {MONO_ATE_MAX_M}")
+    return dict(d, write_s=write_s)
+
+
+def check_vocabulary_training() -> dict:
+    """18e: the default vocabulary's corpus (pretrained._train_default's: 12
+    textures, 1500 features, 4 levels) extracted on the card and trained
+    (k=10, depth 3, seed 7) on the card and on the CPU: the trees must be
+    identical. Then the share of a held-out frame's word ids that equal the
+    shipped tree's (informational: the two packages' extractors agree to a
+    tolerance, not bit for bit)."""
+    cuda_orb.fused_orient_describe.launches = 0
+    t0 = time.perf_counter()
+    corpus = pretrained.default_training_corpus(CARD)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches = cuda_orb.fused_orient_describe.launches
+    t0 = time.perf_counter()
+    voc_card = vocabulary.train_vocabulary(corpus, k=10, levels=3, seed=7, device=CARD)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    voc_cpu = vocabulary.train_vocabulary(corpus.cpu(), k=10, levels=3, seed=7, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    same = (all(np.array_equal(a, b) for a, b in zip(voc_card.centers, voc_cpu.centers))
+            and np.array_equal(voc_card.word_weights, voc_cpu.word_weights))
+    ex = orb.ORBExtractor(orb.ORBConfig(n_features=1500, n_levels=4), (480, 640), CARD)
+    tex = make_texture(np.random.default_rng(4321), 1024)[:480, :640]
+    kp = ex(torch.from_numpy(np.ascontiguousarray(tex, np.float32)).to(CARD))
+    shipped = pretrained.get_default_vocabulary()
+    ids_new = voc_card.transform_packed(kp.desc, kp.valid)
+    ids_ship = shipped.transform_packed(kp.desc, kp.valid)
+    share = float((ids_new == ids_ship)[kp.valid].float().mean())
+    print(f"[vocabulary] _train_default's corpus, {corpus.shape[0]} descriptors extracted on "
+          f"the card in {extract_s:.2f} s ({launches} kernel launches for 12 textures); "
+          f"k=10 depth 3 seed 7 trained on the card in {card_s:.2f} s and on the CPU in "
+          f"{cpu_s:.2f} s: centres and weights {'identical' if same else 'DIFFER'}; a "
+          f"held-out frame's word ids equal to the shipped tree's: {share:.3f} of "
+          f"{int(kp.valid.sum())} (informational)", flush=True)
+    if not same:
+        fail("vocabulary: the tree trained on the card differs from the CPU's")
+    if launches != 12:
+        fail(f"vocabulary: {launches} kernel launches for 12 texture extractions")
+    return dict(descriptors=int(corpus.shape[0]), extract_s=extract_s, train_card_s=card_s,
+                train_cpu_s=cpu_s, identical=same, held_out_same_words_as_shipped=share,
+                launches=launches)
+
+
+def drive_drivers(cam, orb_cfg, seq, frames, stereo_seq, stereo_frames,
+                  ate_defaults) -> dict:
+    """Phase 18: the dataset drivers, each on a sequence written into a
+    temporary directory that is removed after."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_") as tmp:
+        t0 = time.perf_counter()
+        tum = drive_driver_tum(cam, orb_cfg, seq, frames, tmp, ate_defaults)
+        kitti = drive_driver_kitti(stereo_seq, stereo_frames, tmp)
+        rectifier = check_rectifier(tmp)
+        euroc = drive_driver_euroc(tmp)
+        mono = drive_driver_mono(cam, orb_cfg, tmp)
+        voc = check_vocabulary_training()
+        seconds = time.perf_counter() - t0
+    print(f"[drivers] phase 18 took {seconds:.1f} s", flush=True)
+    return dict(rgbd_tum=tum, stereo_kitti=kitti, rectifier=rectifier, stereo_euroc=euroc,
+                mono_tum=mono, vocabulary=voc, seconds=seconds)
+
+
 def main() -> None:
     # ---- phase 1: device --------------------------------------------------
     if not torch.cuda.is_available():
@@ -2330,6 +2747,9 @@ def main() -> None:
     mono_loop, mono_system, mono_seq = drive_mono_loop(cam, orb_cfg, place_system.vocabulary)
     mono_reloc = check_mono_relocalization(mono_system, mono_seq, mono_loop["first_ok"])
     mono_system.shutdown()
+    # ---- phase 18: the dataset drivers ------------------------------------
+    drivers = drive_drivers(cam, orb_cfg, seq, frames, stereo_seq, stereo_frames,
+                            defaults_k1["ate_m"])
     check_no_jax("after the drives")  # a lazy import on a drive shows here
 
     print(json.dumps({"kernels": [{
@@ -2357,7 +2777,12 @@ def main() -> None:
                              "tracker_without_mapper": tracker_alone["launches"],
                              "keyframe_dense_mapped": dense["launches"],
                              "place_recognition": place["launches"],
-                             "relocalization": reloc["launches"]},
+                             "relocalization": reloc["launches"],
+                             "driver_rgbd_tum": drivers["rgbd_tum"]["launches"],
+                             "driver_stereo_kitti": drivers["stereo_kitti"]["launches"],
+                             "driver_stereo_euroc": drivers["stereo_euroc"]["launches"],
+                             "driver_mono_tum": drivers["mono_tum"]["launches"],
+                             "vocabulary_corpus": drivers["vocabulary"]["launches"]},
         "main_path": main_path, "tracker_without_mapper": tracker_alone,
         "keyframe_dense_mapped": dense, "place_recognition": place,
         "relocalization": reloc, "loop_card_vs_cpu": loop,
@@ -2368,7 +2793,8 @@ def main() -> None:
                      "stereo": defaults_stereo},
         "localization": localization, "map_reload": reload, "global_ba": gba,
         "backlog": backlog, "mono": mono, "two_view_card_vs_cpu": two_view,
-        "mono_loop": mono_loop, "mono_relocalization": mono_reloc}]}), flush=True)
+        "mono_loop": mono_loop, "mono_relocalization": mono_reloc,
+        "drivers": drivers}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,27 @@
+"""Stereo driver for KITTI odometry (reference: Examples/Stereo/stereo_kitti.cc).
+
+    python -m orbslam2_tpu_torch.examples.stereo_kitti KITTI00-02.yaml \\
+        <dataset>/sequences/00 [--eval poses/00.txt] [--device cpu]
+"""
+from __future__ import annotations
+
+from orbslam2_tpu_torch.examples.common import (build_parser, make_system, run_loop,
+                                                save_outputs)
+from orbslam2_tpu_torch.io.datasets import kitti_stereo_frames
+from orbslam2_tpu_torch.system import Sensor
+
+
+def main(argv=None):
+    """-> (the SLAMSystem, shut down; the --eval result or None)."""
+    p = build_parser("Stereo SLAM on a KITTI odometry sequence")
+    p.add_argument("sequence_dir")
+    args = p.parse_args(argv)
+    system = make_system(args, Sensor.STEREO, capacity_hint=(2048, 200_000))
+    run_loop(system, kitti_stereo_frames(args.sequence_dir),
+             lambda s, it: s.track_stereo(it.left, it.right, it.timestamp),
+             args.max_frames, trace_dir=args.device_trace)
+    return system, save_outputs(system, args)
+
+
+if __name__ == "__main__":
+    main()

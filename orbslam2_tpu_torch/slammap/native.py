@@ -25,13 +25,13 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
 from orbslam2_tpu_torch.slammap.point_stats import camera_centers
+from orbslam2_tpu_torch.utils.native_build import build_shared_library
 
 ABI_VERSION = 2
 
@@ -39,7 +39,6 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native", "mapgraph.cpp")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libmapgraph.so")
-CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 _load_lock = threading.Lock()
@@ -49,23 +48,7 @@ def build(force: bool = False) -> str:
     """Compile ``native/mapgraph.cpp`` into ``_build/libmapgraph.so``; -> its
     path. Rebuilds when the source is newer than the library. Raises with
     the compiler's output when the build fails."""
-    if not os.path.exists(SOURCE):
-        raise RuntimeError(f"map-graph source not found: {SOURCE}")
-    if not force and os.path.exists(LIB_PATH) and \
-            os.path.getmtime(LIB_PATH) >= os.path.getmtime(SOURCE):
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp_path = f"{LIB_PATH}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = ["g++", *CXX_FLAGS, "-o", tmp_path, SOURCE]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"cannot run the C++ compiler {cmd[0]!r}: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE} failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp_path, LIB_PATH)   # atomic: a reader sees the old or the new file
-    return LIB_PATH
+    return build_shared_library(SOURCE, LIB_PATH, force)
 
 
 def load() -> ctypes.CDLL:

@@ -7,8 +7,10 @@ manager around pipeline stages. The tracker carries one as ``tracker.stats``
 host clock: work queued on a CUDA device is included only where the stage
 ends in a fetch or a synchronisation.
 
-``event_ms``, ``kernel_device_ms`` and ``queued_ms`` time work on a CUDA
-device (``torch`` is imported inside them). ``event_ms`` is paced by the host
+``device_trace`` writes a Chrome trace of everything run in its scope
+(``torch.profiler``; the drivers' ``--device-trace``). ``event_ms``,
+``kernel_device_ms`` and ``queued_ms`` time work on a CUDA device (``torch``
+is imported inside them). ``event_ms`` is paced by the host
 wherever the host sends work more slowly than the card finishes it; the
 other two give the card's own time; ``kernel_device_ms`` can flush the L2
 cache before every call.
@@ -16,6 +18,7 @@ cache before every call.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, List
@@ -72,6 +75,24 @@ class StageTimer:
 
     def reset(self) -> None:
         self.samples.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """``torch.profiler`` over the scope: host (CPU) activity, and the CUDA
+    device's where a card is present; on exit a Chrome trace
+    ``trace_<pid>_<ns>.json`` (chrome://tracing, Perfetto) is written into
+    ``log_dir``. Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
 def event_ms(fn, reps: int) -> float:

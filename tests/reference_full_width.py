@@ -10,6 +10,7 @@ does not collect it): one drive takes minutes at 640x480.
     python3 tests/reference_full_width.py defaults torch --no-rescue
     python3 tests/reference_full_width.py mono jax
     python3 tests/reference_full_width.py mono-loop jax
+    python3 tests/reference_full_width.py drivers jax
 
 Drives, at phase 5's geometry (640x480, fx=fy=520, bf=40, 2000 features,
 8 levels, 16 384 points, a local map of 4 096, 64 keyframes, th_depth 6):
@@ -33,6 +34,13 @@ Drives, at phase 5's geometry (640x480, fx=fy=520, bf=40, 2000 features,
   10 000-word vocabulary, loop consistency 2, kf_cull_redundancy 2.0, 96
   keyframes, max_frames_between_kf 8, the worker waited for before each
   frame. Takes many minutes.
+- ``drivers``: phase 18a's drive, phase 5's 60 frames written as a TUM RGB-D
+  sequence by the package's own ``export_synthetic_tum`` (DepthMapFactor
+  5000) with phase 18a's TUM1-layout settings file (ThDepth 78: a th_depth
+  of 6 m; 64 keyframes, 16 384 points), through the package's
+  ``rgbd_tum`` driver with ``--eval``; both packages take the 10 000-word
+  tree by ``--vocabulary`` (the JAX package's largest shipped tree is
+  another), the port with ``--device cpu``.
 
 The JAX package's mono outcome depends on whether its native map-graph
 library loaded (ROADMAP.md, Queue 3, "Watch"): its mono drives print
@@ -266,9 +274,77 @@ def mono_loop(pkg: str) -> dict:
     return out
 
 
+DRIVER_SETTINGS = """%YAML:1.0
+Camera.fx: 520.0
+Camera.fy: 520.0
+Camera.cx: 320.0
+Camera.cy: 240.0
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: 640
+Camera.height: 480
+Camera.fps: 30.0
+Camera.bf: 40.0
+Camera.RGB: 1
+ThDepth: 78.0
+DepthMapFactor: 5000.0
+ORBextractor.nFeatures: 2000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+Map.MaxKeyFrames: 64
+Map.MaxPoints: 16384
+"""
+
+
+def drivers(pkg: str) -> dict:
+    import contextlib
+    import io
+    import tempfile
+    Cam, _, _, _, _, Seq, _, _, _ = packages(pkg)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    voc = os.path.join(repo, "orbslam2_tpu_torch", "place", "data", "default_voc_k10l4_lp.npz")
+    if pkg == "jax":
+        from orbslam2_tpu.io.datasets import export_synthetic_tum
+    else:
+        from orbslam2_tpu_torch.io.datasets import export_synthetic_tum
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = Seq(Cam(**CAM_KW), n_frames=N_DEFAULTS, trajectory="shuttle", seed=3,
+                  world="cluttered")
+        assoc = export_synthetic_tum(seq, tmp)
+        settings = os.path.join(tmp, "settings.yaml")
+        with open(settings, "w") as f:
+            f.write(DRIVER_SETTINGS)
+        traj, kf = os.path.join(tmp, "t.txt"), os.path.join(tmp, "k.txt")
+        argv = [settings, tmp, assoc, "--vocabulary", voc, "--eval",
+                os.path.join(tmp, "groundtruth.txt"), "--trajectory-out", traj,
+                "--kf-trajectory-out", kf]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            if pkg == "jax":
+                import examples.rgbd_tum as driver
+                sys.argv = ["rgbd_tum.py", *argv]
+                driver.main()
+            else:
+                from orbslam2_tpu_torch.examples import rgbd_tum
+                rgbd_tum.main([*argv, "--device", "cpu"])
+        s = time.perf_counter() - t0
+        tracked = np.loadtxt(traj, ndmin=2)
+        n_kf = len(np.loadtxt(kf, ndmin=2))
+    ev = [ln for ln in out.getvalue().splitlines() if ln.startswith("eval:")]
+    import ast
+    return dict(tracked=int(len(tracked)), n=N_DEFAULTS, keyframes=n_kf,
+                eval=ast.literal_eval(ev[0][5:].strip()) if ev else None, seconds=s)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("drive", choices=["localization", "defaults", "mono", "mono-loop"])
+    ap.add_argument("drive", choices=["localization", "defaults", "mono", "mono-loop",
+                                      "drivers"])
     ap.add_argument("package", choices=["jax", "torch"])
     ap.add_argument("--fetch-batch", type=int, default=1)
     ap.add_argument("--no-rescue", action="store_true",
@@ -281,6 +357,7 @@ def main() -> None:
         Tracker._missed_keyframe = lambda self, rec: False
     t0 = time.perf_counter()
     drives = {"localization": localization, "mono": mono, "mono-loop": mono_loop,
+              "drivers": drivers,
               "defaults": lambda pkg: defaults(pkg, a.fetch_batch)}
     res = drives[a.drive](a.package)
     res.update(drive=a.drive, package=a.package, fetch_batch=a.fetch_batch,

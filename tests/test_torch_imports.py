@@ -1,9 +1,10 @@
 """The port stands alone: importing every module of orbslam2_tpu_torch, and
 chip_smoke.py, pulls in neither jax nor the JAX package, and neither does a
 drive whose keyframes the mapping worker's thread maps and hands to loop
-closing, nor reading the port's vocabulary (its own copy of the data); its
-entry points refuse to run without a GPU unless the caller asks for the
-CPU."""
+closing, nor reading the port's vocabulary (its own copy of the data), nor a
+dataset driver on the CPU, which needs no OpenCV, PIL, PyYAML or imageio
+either (the card's machine has none of them); its entry points refuse to run
+without a GPU unless the caller asks for the CPU."""
 import os
 import pkgutil
 import subprocess
@@ -59,9 +60,30 @@ print("KEYFRAMES", system.map.n_keyframes(), "IN KFDB", int(system.kfdb.valid.su
       "MAPPED", system.local_mapper.counts)
 read = [f for f in opened if "orbslam2_tpu/" in f.replace("orbslam2_tpu_torch/", "")]
 
+# a dataset driver on the CPU: a TUM sequence written and read by the port's
+# own PNG code, the settings file by its own reader, no OpenCV anywhere
+import tempfile
+from orbslam2_tpu_torch.examples import rgbd_tum
+from orbslam2_tpu_torch.io.datasets import export_synthetic_tum
+with tempfile.TemporaryDirectory() as tmp:
+    assoc = export_synthetic_tum(SyntheticSequence(cam, n_frames=3, trajectory="lateral",
+                                                   seed=2), tmp)
+    with open(os.path.join(tmp, "s.yaml"), "w") as f:
+        f.write(chr(10).join([
+            "%YAML:1.0", "Camera.fx: 260.0", "Camera.fy: 260.0", "Camera.cx: 160.0",
+            "Camera.cy: 120.0", "Camera.width: 320", "Camera.height: 240", "Camera.bf: 26.0",
+            "ThDepth: 40.0", "DepthMapFactor: 5000.0", "ORBextractor.nFeatures: 800",
+            "ORBextractor.nLevels: 4"]))
+    drv, _ = rgbd_tum.main([os.path.join(tmp, "s.yaml"), tmp, assoc, "--device", "cpu",
+                            "--no-loop-closing",
+                            "--trajectory-out", os.path.join(tmp, "t.txt"),
+                            "--kf-trajectory-out", os.path.join(tmp, "k.txt")])
+print("DRIVER TRACKED", int((~drv.tracker.trajectory_lost_mask()).sum()))
+
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m == "orbslam2_tpu" or m.startswith("orbslam2_tpu."))
+             or m == "orbslam2_tpu" or m.startswith("orbslam2_tpu.")
+             or m.split(".")[0] in ("cv2", "PIL", "yaml", "imageio"))
 print("IMPORTED", len(names), "BAD", bad, "READ", read)
 sys.exit(1 if bad or read else 0)
 """
@@ -79,7 +101,11 @@ def test_every_module_is_listed():
             "geometry.sim3", "geometry.sim3_np", "place.vocabulary",
             "place.pretrained", "slammap.keyframe_db", "solvers.horn",
             "solvers.epnp", "backend.sim3_opt", "backend.pose_graph",
-            "frontend.loop_closing", "ops.stereo", "slammap.native"}
+            "frontend.loop_closing", "ops.stereo", "slammap.native",
+            "io.settings", "io.png", "io.datasets", "utils.native_build",
+            "examples.common", "examples.rgbd_tum", "examples.mono_tum",
+            "examples.mono_kitti", "examples.mono_euroc", "examples.stereo_kitti",
+            "examples.stereo_euroc"}
     have = {m[len("orbslam2_tpu_torch."):] for m in MODULES} | {"__init__"}
     assert want <= have, want - have
 
@@ -93,6 +119,7 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert f"IMPORTED {len(MODULES) + 1} BAD [] READ []" in proc.stdout
     assert "KEYFRAMES 3 IN KFDB 3" in proc.stdout, proc.stdout
+    assert "DRIVER TRACKED 3" in proc.stdout, proc.stdout
 
 
 def test_sources_do_not_name_jax_imports():
