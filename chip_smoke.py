@@ -174,9 +174,37 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             the card and on the CPU: identical trees; both times, and the
             share of a held-out frame's words equal to the shipped tree's
 
+19. parallel 19a: the JAX dry run's production global BA
+            (parallel/dryrun.py: 256 keyframes, 16 384 points, 65 536
+            observations, phases (5, 10), 30 PCG iterations) through
+            distributed_bundle_adjust with a group of 1 rank over NCCL (this
+            process) and a group of 2 ranks over gloo (two processes, both on
+            this card): in float32 held to the dry run's gates (finite,
+            inliers >= 95 %, cost <= 2 x the single-device solve's + 1e-3),
+            in float64 to the single-device bundle_adjust_pcg (camera centres
+            within 1e-6 m); both costs and each solve's ms. 19b:
+            make_multi_camera_step with 8 sessions at 640x480 / 2000 / 4
+            levels on worlds built as tests/test_multi_session.py builds
+            them: every session above 30 inliers and within 0.05 of the
+            truth, the batched step equal to a loop of single-session steps,
+            2 describe launches a step (8 x 4 levels in tables of 16), the
+            batched tables against the plain version with 0 descriptors
+            differing; ms per batched step against 8 single steps, and the
+            16-level launch timed as in phase 3
+20. periphery ros_demo's path (LocalTopicBus -> RGBDNode) on phase 5's 60
+            frames with SLAMConfig's defaults and the 10 000-word tree, with
+            ARViewer, HeadlessViewer (PNG) and LiveViewer(use_gui=False,
+            JPEG) on every frame: frames = poses published, none lost after
+            initialisation, ATE <= 0.10 m, one launch per frame build, the
+            AR plane found, the PNG files read back equal and the JPEG files
+            read back by the port's decoder within 35 dB; the viewers' host
+            ms a frame. Then rgbd_tum --viewer on 18a's sequence: its
+            published JPEG files read back
+
 Then one JSON line {"kernels": [...]} (phase 3's numbers and phase 5's
 launches at its top level, phase 13's 16-level launch and phase 12's launches
-under "stereo_16_levels", every drive's launches under "launches_by_path"),
+under "stereo_16_levels", phase 19b's 16-level launch under
+"multi_session_16_levels", every drive's launches under "launches_by_path"),
 the nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -201,9 +229,11 @@ from orbslam2_tpu_torch.frontend import kernels, local_mapping, loop_closing
 from orbslam2_tpu_torch.frontend import tracking as tracking_mod
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
 from orbslam2_tpu_torch.frontend.triangulation import triangulate_neighbors
+from orbslam2_tpu_torch.geometry import se3
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
-from orbslam2_tpu_torch.examples import mono_tum, rgbd_tum, stereo_euroc, stereo_kitti
-from orbslam2_tpu_torch.io import datasets, png
+from orbslam2_tpu_torch.examples import (mono_tum, rgbd_tum, ros_demo, stereo_euroc,
+                                         stereo_kitti)
+from orbslam2_tpu_torch.io import datasets, jpeg, png
 from orbslam2_tpu_torch.io.evaluate import ate_rmse, rpe
 from orbslam2_tpu_torch.io.synthetic import SyntheticSequence, make_texture
 from orbslam2_tpu_torch.ops import cuda_orb, orb, stereo
@@ -212,7 +242,14 @@ from orbslam2_tpu_torch.place.pretrained import get_large_vocabulary
 from orbslam2_tpu_torch.slammap import covisibility, native, point_stats
 from orbslam2_tpu_torch.slammap.device_map import FIELDS as DEVICE_MIRROR_FIELDS
 from orbslam2_tpu_torch.slammap.device_map import DeviceKFStore, DeviceMapMirror
+from orbslam2_tpu_torch.parallel import dryrun, mesh
+from orbslam2_tpu_torch.parallel.dist_ba import distributed_bundle_adjust
+from orbslam2_tpu_torch.parallel.multi_session import (make_multi_camera_step,
+                                                       make_single_camera_step)
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
+from orbslam2_tpu_torch.viewer.ar import ARViewer
+from orbslam2_tpu_torch.viewer.headless import STATUS_BAR_ROWS, HeadlessViewer
+from orbslam2_tpu_torch.viewer.live import LiveViewer
 from orbslam2_tpu_torch.utils.profiling import (device_activity, event_ms, kernel_device_ms,
                                                 queued_ms)
 
@@ -2413,9 +2450,10 @@ def drive_driver_tum(cam, orb_cfg, seq, frames, tmp, ate_defaults) -> dict:
     print(f"[driver tum] rgbd_tum on phase 5's {seq.n_frames} frames written as TUM RGB-D PNGs "
           f"in {write_s:.1f} s ({geometry(cam, orb_cfg)}, DepthMapFactor 5000, the largest "
           f"shipped vocabulary)", flush=True)
-    system, ev, d = run_driver("driver tum", rgbd_tum, [
-        settings, root, assoc, "--device", CARD, "--eval",
-        os.path.join(root, "groundtruth.txt"), *outputs(tmp, "tum")], seq.n_frames)
+    argv = [settings, root, assoc, "--device", CARD, "--eval",
+            os.path.join(root, "groundtruth.txt")]
+    system, ev, d = run_driver("driver tum", rgbd_tum, [*argv, *outputs(tmp, "tum")],
+                               seq.n_frames)
     print(f"  frames tracked {d['tracked']}/{seq.n_frames} from frame {d['first_ok']}, lost after "
           f"{d['lost_after_init']}; keyframes {d['keyframes']}, points {d['points']}; ATE-RMSE "
           f"{ev['ate_rmse_m']:.4f} m (phase 14, the same drive from rendered frames: "
@@ -2428,7 +2466,7 @@ def drive_driver_tum(cam, orb_cfg, seq, frames, tmp, ate_defaults) -> dict:
         fail(f"driver tum: ATE {ev['ate_rmse_m']} m, limit {TUM_DRIVER_ATE_MAX_M}")
     if system.vocabulary is None or system.vocabulary.n_words != 10000:
         fail("driver tum: the driver did not load the 10 000-word vocabulary")
-    return dict(d, write_s=write_s, ate_phase14_m=ate_defaults)
+    return dict(d, write_s=write_s, ate_phase14_m=ate_defaults), argv
 
 
 def drive_driver_kitti(seq, frames, tmp) -> dict:
@@ -2656,21 +2694,333 @@ def check_vocabulary_training() -> dict:
 
 
 def drive_drivers(cam, orb_cfg, seq, frames, stereo_seq, stereo_frames,
-                  ate_defaults) -> dict:
-    """Phase 18: the dataset drivers, each on a sequence written into a
-    temporary directory that is removed after."""
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_drivers_") as tmp:
-        t0 = time.perf_counter()
-        tum = drive_driver_tum(cam, orb_cfg, seq, frames, tmp, ate_defaults)
-        kitti = drive_driver_kitti(stereo_seq, stereo_frames, tmp)
-        rectifier = check_rectifier(tmp)
-        euroc = drive_driver_euroc(tmp)
-        mono = drive_driver_mono(cam, orb_cfg, tmp)
-        voc = check_vocabulary_training()
-        seconds = time.perf_counter() - t0
+                  ate_defaults, tmp) -> tuple:
+    """Phase 18: the dataset drivers, each on a sequence written into the
+    temporary directory ``tmp``. -> (entries, rgbd_tum's arguments on 18a's
+    sequence)."""
+    t0 = time.perf_counter()
+    tum, tum_argv = drive_driver_tum(cam, orb_cfg, seq, frames, tmp, ate_defaults)
+    kitti = drive_driver_kitti(stereo_seq, stereo_frames, tmp)
+    rectifier = check_rectifier(tmp)
+    euroc = drive_driver_euroc(tmp)
+    mono = drive_driver_mono(cam, orb_cfg, tmp)
+    voc = check_vocabulary_training()
+    seconds = time.perf_counter() - t0
     print(f"[drivers] phase 18 took {seconds:.1f} s", flush=True)
     return dict(rgbd_tum=tum, stereo_kitti=kitti, rectifier=rectifier, stereo_euroc=euroc,
-                mono_tum=mono, vocabulary=voc, seconds=seconds)
+                mono_tum=mono, vocabulary=voc, seconds=seconds), tum_argv
+
+
+# ---- phase 19: the parallel paths ---------------------------------------
+# distributed global BA in float64 against the single-device solve: the
+# ranks' partial sums add up in another order, so the solves differ by
+# rounding; phases 6 and 11's limit
+DIST_CENTRE_TOL_M = 1e-6
+MULTI_SESSIONS = 8                     # 19b: sessions in one batched step
+SESSION_INLIERS_MIN = 30               # tests/test_multi_session.py's limits
+SESSION_POSE_ERR_MAX = 0.05
+MULTI_TIMED_STEPS = 5                  # batched steps (and loops of single ones) timed
+
+
+def _pose_errors(tcw: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    """The norm of se3.log(Tcw Tgt^-1) for stacks of poses, as
+    tests/test_multi_session.py measures a session's error."""
+    d = se3.log(se3.compose(torch.as_tensor(tcw, dtype=torch.float64),
+                            se3.inverse(torch.as_tensor(gt, dtype=torch.float64))))
+    return torch.linalg.norm(d, dim=-1).numpy()
+
+
+def check_distributed_gba(tmp) -> dict:
+    """19a: the JAX dry run's production GBA through distributed_bundle_adjust
+    with a group of 1 rank over NCCL (this process) and of 2 ranks over gloo
+    (two processes, both on this card), in float32 against the dry run's
+    gates and in float64 against the single-device bundle_adjust_pcg."""
+    n_cams, n_pts, n_obs = dryrun.GBA_SIZE
+    print(f"[parallel gba] distributed_bundle_adjust, the dry run's problem: {n_cams} "
+          f"keyframes, {n_pts} points, {n_obs} observations, phases {dryrun.GBA_PHASES}, "
+          f"{dryrun.GBA_PCG_ITERS} PCG iterations", flush=True)
+    fields, gcam = dryrun.make_gba_problem_np(n_cams, n_pts, n_obs)
+    dev = torch.device(CARD)
+    sync = torch.cuda.synchronize
+    kw = dict(phase_iters=dryrun.GBA_PHASES, pcg_iters=dryrun.GBA_PCG_ITERS)
+    dtypes = ("float32", "float64")
+    problems = {dt: dryrun.problem_from_numpy(fields, dev, getattr(torch, dt)) for dt in dtypes}
+    single, single_ms = {}, {}
+    for dt in dtypes:
+        ba.bundle_adjust_pcg(problems[dt], gcam, **kw)             # warm
+        single[dt], single_ms[dt] = _timed(
+            lambda: ba.bundle_adjust_pcg(problems[dt], gcam, **kw), sync)
+    runs = {}
+    mesh.init(0, 1, "nccl", mesh.free_port())
+    try:
+        group = mesh.make_group(backend="nccl", device=dev)
+        runs["nccl_1"] = {}
+        for dt in dtypes:
+            # one LM step first: NCCL sets a communicator up at a group's
+            # first all-reduce, and each dtype's kernels load at first use
+            distributed_bundle_adjust(problems[dt], gcam, group, phase_iters=(1,), pcg_iters=1)
+            res, ms = _timed(lambda: distributed_bundle_adjust(problems[dt], gcam, group, **kw),
+                             sync)
+            runs["nccl_1"][dt] = (res._replace(**{f: getattr(res, f).cpu().numpy() for f in
+                                                  ("poses", "points", "inlier")}), ms, False)
+    finally:
+        torch.distributed.destroy_process_group()
+    path, out = os.path.join(tmp, "gba.npz"), os.path.join(tmp, "gba_gloo.npz")
+    dryrun.save_problem(path, fields, gcam)
+    t0 = time.perf_counter()
+    mesh.spawn(dryrun.solve_in_groups, 2, "gloo",
+               ([path], [(0, dt, 2) for dt in dtypes], out, CARD, *kw.values(), True))
+    spawn_s = time.perf_counter() - t0
+    with np.load(out) as f:
+        runs["gloo_2"] = {dt: (ba.BAResult(*(f[f"0/{dt}/2/{name}"] for name in ba.BAResult._fields)),
+                               float(f[f"0/{dt}/2/seconds"]) * 1e3, bool(f[f"0/{dt}/2/staged"]))
+                          for dt in dtypes}
+    entries = dict(single_cost_f32=float(single["float32"].cost),
+                   single_cost_f64=float(single["float64"].cost),
+                   single_ms_f32=single_ms["float32"], single_ms_f64=single_ms["float64"],
+                   gloo_spawn_s=spawn_s)
+    for name, by_dt in runs.items():
+        (r32, ms32, staged), (r64, ms64, _) = by_dt["float32"], by_dt["float64"]
+        gates = dryrun.gba_gates(r32, float(single["float32"].cost))
+        centre = _centre_diff(np.asarray(r64.poses), single["float64"].poses.cpu().numpy())
+        inlier_same = float((np.asarray(r64.inlier) == single["float64"].inlier.cpu().numpy()
+                             ).mean())
+        print(f"  {name}: float32 cost {gates['cost']:.3f} (single-device "
+              f"{gates['cost_single']:.3f}, gate <= 2x + 1e-3), inliers "
+              f"{gates['inlier_share']:.4f} (gate >= {dryrun.INLIER_MIN}), finite; float64 cost "
+              f"{float(r64.cost):.6f} (single-device {float(single['float64'].cost):.6f}), "
+              f"camera centres within {centre:.2e} m of the single-device solve (limit "
+              f"{DIST_CENTRE_TOL_M}), inlier classes equal on {inlier_same:.6f}; one solve "
+              f"{ms32:.1f} ms float32, {ms64:.1f} ms float64 (single-device {single_ms['float32']:.1f}"
+              f" / {single_ms['float64']:.1f} ms)"
+              + (f"; gloo staged through pinned host memory: {staged}" if name == "gloo_2" else ""),
+              flush=True)
+        if centre > DIST_CENTRE_TOL_M:
+            fail(f"parallel gba: {name} float64 camera centres {centre} m from single-device")
+        entries[name] = dict(cost_f32=gates["cost"], inlier_share_f32=gates["inlier_share"],
+                             cost_f64=float(r64.cost), centre_diff_f64_m=centre,
+                             inlier_classes_equal_f64=inlier_same, ms_f32=ms32, ms_f64=ms64,
+                             staged_through_host=staged)
+    print(f"  the gloo pair's two processes took {spawn_s:.1f} s from spawn to exit "
+          f"(process start and CUDA set-up included)", flush=True)
+    return entries
+
+
+def check_multi_session() -> dict:
+    """19b: make_multi_camera_step with 8 sessions at 640x480 / 2000 / 4 on
+    per-session worlds built as tests/test_multi_session.py builds them."""
+    cam, orb_cfg, cap, b = (dryrun.SESSION_CAM, dryrun.SESSION_ORB, dryrun.SESSION_CAP,
+                            MULTI_SESSIONS)
+    n_tables = -(-b * orb_cfg.n_levels // cuda_orb.MAX_LEVELS)
+    print(f"[multi-session] make_multi_camera_step, {b} sessions at {geometry(cam, orb_cfg)}, "
+          f"local maps of {cap} points, {n_tables} describe launches a step", flush=True)
+    t0 = time.perf_counter()
+    inputs, gts = dryrun.session_worlds(cam, orb_cfg, b, cap, CARD)
+    worlds_s = time.perf_counter() - t0
+    step = make_multi_camera_step(cam, orb_cfg, cap, CARD)
+    single = make_single_camera_step(cam, orb_cfg, cap, CARD)
+    step(*inputs)
+    torch.cuda.synchronize()
+    cuda_orb.fused_orient_describe.launches = 0
+    tcw, n_in = step(*inputs)
+    torch.cuda.synchronize()
+    launches = cuda_orb.fused_orient_describe.launches
+    if launches != n_tables:
+        fail(f"multi-session: {launches} describe launches for one step, expected {n_tables}")
+    tcw, n_in = tcw.cpu().numpy(), n_in.cpu().numpy()
+    errors = _pose_errors(tcw, gts)
+    singles = [single(*(x[s] for x in inputs)) for s in range(b)]
+    same = all(np.array_equal(t.cpu().numpy(), tcw[s]) and int(n) == int(n_in[s])
+               for s, (t, n) in enumerate(singles))
+    # the batched tables against the plain version
+    ex = orb.get_extractor(orb_cfg, (cam.height, cam.width), CARD)
+    per_image = [ex._levels(img) for img in inputs[0]]
+    fields = [sum((list(lv[i]) for lv in per_image), []) for i in range(4)]
+    budgets = list(ex.level_budgets) * b
+    tables = [(*(f[lo:lo + cuda_orb.MAX_LEVELS] for f in fields), ex.pattern_t,
+               budgets[lo:lo + cuda_orb.MAX_LEVELS])
+              for lo in range(0, len(budgets), cuda_orb.MAX_LEVELS)]
+    n_differ, angle_err, n_slots = 0, 0.0, 0
+    for args in tables:
+        k_out = cuda_orb.fused_orient_describe_levels(*args)
+        p_out = cuda_orb.fused_orient_describe_levels_plain(*args)
+        n_differ += int((hamming_rows(k_out[1], p_out[1]) > 0).sum())
+        d = torch.atan2(torch.sin(k_out[0] - p_out[0]), torch.cos(k_out[0] - p_out[0])).abs()
+        angle_err = max(angle_err, float(d.max()))
+        n_slots += k_out[1].shape[0]
+    # ms per batched step against a loop of single steps, in turns
+    sync = torch.cuda.synchronize
+    batched_ms, singles_ms = [], []
+    for _ in range(MULTI_TIMED_STEPS):
+        batched_ms.append(_timed(lambda: step(*inputs), sync)[1])
+        singles_ms.append(_timed(lambda: [single(*(x[s] for x in inputs)) for s in range(b)],
+                                 sync)[1])
+    print(f"  inliers per session {n_in.tolist()} (each > {SESSION_INLIERS_MIN}); pose errors "
+          f"{np.round(errors, 5).tolist()} (each < {SESSION_POSE_ERR_MAX}); batched = single-"
+          f"session steps: {same}; describe launches {launches} a step; batched tables "
+          f"against the plain version: {n_differ} of {n_slots} descriptors differ (must be 0), "
+          f"max angle difference {angle_err:.2e} rad; one batched step {np.median(batched_ms):.1f}"
+          f" ms against {np.median(singles_ms):.1f} ms for {b} single steps (medians of "
+          f"{MULTI_TIMED_STEPS}, host clock around synchronised calls); worlds built in "
+          f"{worlds_s:.1f} s", flush=True)
+    if not (n_in > SESSION_INLIERS_MIN).all():
+        fail(f"multi-session: inliers {n_in.tolist()}")
+    if not (errors < SESSION_POSE_ERR_MAX).all():
+        fail(f"multi-session: pose errors {errors.tolist()}")
+    if not same:
+        fail("multi-session: the batched step differs from the single-session steps")
+    if n_differ:
+        fail(f"multi-session: {n_differ} descriptors differ from the plain version")
+    if angle_err > STEREO16_ANGLE_TOL_RAD:
+        fail(f"multi-session: angles differ by {angle_err} rad")
+
+    def run_four_images():
+        for img in range(cuda_orb.MAX_LEVELS // orb_cfg.n_levels):
+            cuda_orb.fused_orient_describe_levels(*(lv for lv in per_image[img][:4]),
+                                                  ex.pattern_t, ex.level_budgets)
+
+    print("  describe, one launch over 4 sessions' 16 levels; each image's 4 levels in a "
+          "launch of its own beside it", flush=True)
+    times = describe_times(tables[0], run_four_images, cuda_orb.MAX_LEVELS // orb_cfg.n_levels,
+                           "four_images_one_launch_each",
+                           "four launches, one over each image's 4 levels")
+    return dict(launches=launches, launches_per_step=launches, sessions=b,
+                inliers=n_in.tolist(), pose_errors=errors.tolist(), equal_to_single=same,
+                descriptors_differing=n_differ, max_abs_err=angle_err,
+                batched_step_ms=float(np.median(batched_ms)),
+                single_steps_ms=float(np.median(singles_ms)), describe=dict(
+                    max_abs_err=angle_err, descriptors_differing=n_differ, **times,
+                    ms_covers="one launch over one table of the batched step: 4 sessions' 4 "
+                              "levels at 640x480 (the step makes two), timed by CUDA events "
+                              "around wrapper calls (host-paced); device_ms is the kernel's "
+                              "own duration with L2 flushed before each launch"))
+
+
+# ---- phase 20: the periphery -------------------------------------------
+JPEG_PSNR_MIN_DB = 35.0   # tests/test_torch_viewer.py's bound (quality 95, 4:4:4)
+
+
+def _psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+
+
+def check_published(live, out_dir, name) -> dict:
+    """The live viewer's two JPEG files read back by the port's decoder."""
+    frame = jpeg.imread(os.path.join(out_dir, "latest_frame.jpg"))
+    top = jpeg.imread(os.path.join(out_dir, "latest_map.jpg"))
+    psnr = _psnr(frame, live.last_frame_img) if frame.shape == live.last_frame_img.shape \
+        else float("nan")
+    if not psnr >= JPEG_PSNR_MIN_DB:
+        fail(f"{name}: latest_frame.jpg of shape {frame.shape} at {psnr} dB against the "
+             f"rendered frame {live.last_frame_img.shape}")
+    if top.shape != (640, 640, 3):
+        fail(f"{name}: latest_map.jpg has shape {top.shape}")
+    return dict(rendered=live.n_rendered, frame_psnr_db=psnr,
+                render_ms_median=float(np.median(live.render_ms)) if live.render_ms else None)
+
+
+def drive_periphery(cam, orb_cfg, seq, frames, voc, tmp) -> dict:
+    """20: ros_demo's path at phase 5's geometry (LocalTopicBus -> RGBDNode)
+    with SLAMConfig's defaults and the 10 000-word tree, the AR overlay, the
+    headless viewer (PNG) and the live viewer (JPEG) on every frame."""
+    print(f"[periphery] ros_demo.replay: phase 5's {len(frames)} frames published on a "
+          f"LocalTopicBus into an RGBDNode ({geometry(cam, orb_cfg)}, SLAMConfig's defaults, the "
+          f"10 000-word tree), with ARViewer, HeadlessViewer (PNG) and LiveViewer(use_gui=False, "
+          f"JPEG) on every frame", flush=True)
+    system = SLAMSystem(defaults_config(cam, orb_cfg), Sensor.RGBD, vocabulary=voc)
+    tracker = system.tracker
+    ar_view = ARViewer(system, cube_size=0.3, plane_threshold=0.05)
+    viz_dir, live_dir = os.path.join(tmp, "viz"), os.path.join(tmp, "live")
+    os.makedirs(live_dir)
+    offline = HeadlessViewer(system, out_dir=viz_dir, map_every=30)
+    live = LiveViewer(system, out_dir=live_dir, use_gui=False)
+    host_ms = {"ar": [], "headless": []}
+    last = {}
+
+    def on_frame(gray):
+        t0 = time.perf_counter()
+        last["ar"] = ar_view.update(gray)
+        t1 = time.perf_counter()
+        last["headless"] = offline.update(gray)
+        t2 = time.perf_counter()
+        live.push_frame(gray)
+        host_ms["ar"].append((t1 - t0) * 1e3)
+        host_ms["headless"].append((t2 - t1) * 1e3)
+
+    cuda_orb.fused_orient_describe.launches = 0
+    t0 = time.perf_counter()
+    node, poses = ros_demo.replay(system, frames, seq.fps, on_frame)
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = cuda_orb.fused_orient_describe.launches
+    live.close()
+    if not system.wait_mapping_idle(300):
+        fail("periphery: the mapping worker did not become idle within 300 s")
+    n = len(frames)
+    lost = tracker.trajectory_lost_mask()
+    ok_at = np.flatnonzero(~lost)
+    first = int(ok_at[0]) if len(ok_at) else None
+    ate = check_trajectory("periphery", tracker, seq, dict(first_ok=first)) \
+        if first is not None else float("nan")
+    published = check_published(live, live_dir, "periphery")
+    png_same = np.array_equal(png.imread(os.path.join(viz_dir, f"frame_{n - 1:06d}.png")),
+                              last["headless"])
+    top = png.imread(os.path.join(viz_dir, "map_000030.png"))
+    expected = n + tracker.rebuilt_frames + tracker.retracked_frames
+    print(f"  frames {node.frames}, tracked and published {node.tracked} / {len(poses)} poses "
+          f"from frame {first}, lost after it {np.flatnonzero(lost[first or 0:]).tolist()}; "
+          f"ATE-RMSE {ate:.4f} m (limit {ATE_MAX_M}); keyframes {system.map.n_keyframes()}; "
+          f"kernel launches {launches} (expected {expected}); {seconds / n * 1e3:.2f} ms a frame "
+          f"with the viewers; AR plane "
+          f"{'found, ' + str(ar_view.plane.n_inliers) + ' inliers' if ar_view.plane else 'none'}"
+          f"; host ms a frame (median): ARViewer.update "
+          f"{np.median(host_ms['ar']):.2f}, HeadlessViewer.update {np.median(host_ms['headless']):.2f}"
+          f" (PNG written), LiveViewer render and JPEG publication "
+          f"{published['render_ms_median']:.2f} on its thread ({published['rendered']} renders); "
+          f"PNG read back equal: {png_same}, map PNG {top.shape}; latest_frame.jpg "
+          f"{published['frame_psnr_db']:.2f} dB (limit {JPEG_PSNR_MIN_DB})", flush=True)
+    system.shutdown()
+    if node.frames != n or len(poses) != node.tracked or first is None or lost[first:].any():
+        fail(f"periphery: {node.frames} frames, {node.tracked} tracked, {len(poses)} published, "
+             f"lost {np.flatnonzero(lost).tolist()}")
+    if not ate <= ATE_MAX_M:
+        fail(f"periphery: ATE {ate} m")
+    if launches != expected:
+        fail(f"periphery: {launches} kernel launches, expected {expected}")
+    if ar_view.plane is None:
+        fail("periphery: the AR overlay found no plane")
+    if not png_same or top.shape != (640, 640, 3):
+        fail("periphery: the headless viewer's PNG files do not read back")
+    return dict(launches=launches, frames=node.frames, tracked=node.tracked,
+                poses_published=len(poses), first_ok=first, ate_m=ate,
+                ms_per_frame=seconds / n * 1e3, plane_inliers=ar_view.plane.n_inliers,
+                ar_host_ms_median=float(np.median(host_ms["ar"])),
+                headless_host_ms_median=float(np.median(host_ms["headless"])),
+                live=published, png_read_back_equal=png_same)
+
+
+def drive_driver_viewer(tum_argv, tmp, n_frames) -> dict:
+    """20: rgbd_tum --viewer on 18a's sequence."""
+    out = os.path.join(tmp, "tum_viewer")
+    os.makedirs(out)
+    print(f"[driver viewer] rgbd_tum --viewer --viewer-dir on phase 18a's sequence", flush=True)
+    system, ev, d = run_driver("driver viewer", rgbd_tum,
+                               [*tum_argv, "--viewer", "--viewer-dir", out,
+                                *outputs(tmp, "tum_viewer")], n_frames)
+    files = sorted(os.listdir(out))
+    frame = jpeg.imread(os.path.join(out, "latest_frame.jpg"))
+    top = jpeg.imread(os.path.join(out, "latest_map.jpg"))
+    print(f"  frames tracked {d['tracked']}/{n_frames} from frame {d['first_ok']}, lost after "
+          f"{d['lost_after_init']}; ATE-RMSE {ev['ate_rmse_m']:.4f} m; {d['ms_per_frame']:.2f} ms "
+          f"a frame with the viewer; published {files}: frame {frame.shape}, map {top.shape}",
+          flush=True)
+    if d["lost_after_init"] or not ev["ate_rmse_m"] <= TUM_DRIVER_ATE_MAX_M:
+        fail(f"driver viewer: lost {d['lost_after_init']}, ATE {ev['ate_rmse_m']}")
+    if frame.shape != (system.cfg.cam.height + STATUS_BAR_ROWS, system.cfg.cam.width, 3) \
+            or top.shape != (640, 640, 3):
+        fail(f"driver viewer: published images of shapes {frame.shape}, {top.shape}")
+    return dict(d, published=files)
 
 
 def main() -> None:
@@ -2747,9 +3097,16 @@ def main() -> None:
     mono_loop, mono_system, mono_seq = drive_mono_loop(cam, orb_cfg, place_system.vocabulary)
     mono_reloc = check_mono_relocalization(mono_system, mono_seq, mono_loop["first_ok"])
     mono_system.shutdown()
-    # ---- phase 18: the dataset drivers ------------------------------------
-    drivers = drive_drivers(cam, orb_cfg, seq, frames, stereo_seq, stereo_frames,
-                            defaults_k1["ate_m"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # ---- phase 18: the dataset drivers --------------------------------
+        drivers, tum_argv = drive_drivers(cam, orb_cfg, seq, frames, stereo_seq,
+                                          stereo_frames, defaults_k1["ate_m"], tmp)
+        # ---- phase 19: distributed global BA, batched multi-session ----
+        gba_parallel = check_distributed_gba(tmp)
+        multi = check_multi_session()
+        # ---- phase 20: the ROS-style node, the viewers, the AR overlay ----
+        periphery = drive_periphery(cam, orb_cfg, seq, frames, place_system.vocabulary, tmp)
+        driver_viewer = drive_driver_viewer(tum_argv, tmp, N_FRAMES)
     check_no_jax("after the drives")  # a lazy import on a drive shows here
 
     print(json.dumps({"kernels": [{
@@ -2782,7 +3139,14 @@ def main() -> None:
                              "driver_stereo_kitti": drivers["stereo_kitti"]["launches"],
                              "driver_stereo_euroc": drivers["stereo_euroc"]["launches"],
                              "driver_mono_tum": drivers["mono_tum"]["launches"],
-                             "vocabulary_corpus": drivers["vocabulary"]["launches"]},
+                             "vocabulary_corpus": drivers["vocabulary"]["launches"],
+                             "multi_session_batched_step": multi["launches"],
+                             "ros_node_rgbd_with_viewers": periphery["launches"],
+                             "driver_rgbd_tum_viewer": driver_viewer["launches"]},
+        # the batched multi-session step's launch over one table of 4
+        # sessions' 4 levels (phase 19b; a step makes two)
+        "multi_session_16_levels": {**multi.pop("describe"), "launches": multi["launches"],
+                                    "launches_per_step": multi["launches_per_step"]},
         "main_path": main_path, "tracker_without_mapper": tracker_alone,
         "keyframe_dense_mapped": dense, "place_recognition": place,
         "relocalization": reloc, "loop_card_vs_cpu": loop,
@@ -2794,7 +3158,8 @@ def main() -> None:
         "localization": localization, "map_reload": reload, "global_ba": gba,
         "backlog": backlog, "mono": mono, "two_view_card_vs_cpu": two_view,
         "mono_loop": mono_loop, "mono_relocalization": mono_reloc,
-        "drivers": drivers}]}), flush=True)
+        "drivers": drivers, "distributed_gba": gba_parallel, "multi_session": multi,
+        "periphery": periphery, "driver_viewer": driver_viewer}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

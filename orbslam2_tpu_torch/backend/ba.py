@@ -148,11 +148,17 @@ def _build_blocks(problem: BAProblem, cam: PinholeCamera, active: torch.Tensor,
     return h_cc, h_pp, b_c, b_p, w_cp, cost
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The sum over observations of a solve on one device: the partial sum
+    is the whole (``parallel/dist_ba.py`` passes an all-reduce instead)."""
+    return t
+
+
 def _total_cost(problem: BAProblem, cam: PinholeCamera, active: torch.Tensor,
-                use_huber: bool) -> torch.Tensor:
+                use_huber: bool, reduce=_local) -> torch.Tensor:
     e, z = _residual_only_ba(problem, cam)
     _, cost_o = _robust_weights(e, problem, use_huber)
-    return torch.sum(torch.where(active & (z > 1e-6), cost_o, 0.0))
+    return reduce(torch.sum(torch.where(active & (z > 1e-6), cost_o, 0.0)))
 
 
 def _inv3x3(a: torch.Tensor) -> torch.Tensor:
@@ -238,19 +244,19 @@ def _classify_inliers(problem: BAProblem, cam: PinholeCamera) -> torch.Tensor:
 
 
 def _under_constrained(problem: BAProblem, active: torch.Tensor,
-                       pt_fixed: torch.Tensor) -> torch.Tensor:
+                       pt_fixed: torch.Tensor, reduce=_local) -> torch.Tensor:
     """[P] points with < 2 active observations and no active stereo one:
     unconstrained along their viewing ray."""
     p = problem.points.shape[0]
-    zeros = torch.zeros(p, dtype=torch.float32, device=active.device)
-    n_obs = zeros.index_add(0, problem.obs_pt, active.to(torch.float32))
-    n_st = zeros.index_add(0, problem.obs_pt,
-                           (active & problem.obs_stereo).to(torch.float32))
-    return (n_obs < 2) & (n_st < 1) & ~pt_fixed
+    counts = torch.zeros((p, 2), dtype=torch.float32, device=active.device).index_add_(
+        0, problem.obs_pt, torch.stack([active, active & problem.obs_stereo], 1).to(
+            torch.float32))
+    counts = reduce(counts)
+    return (counts[:, 0] < 2) & (counts[:, 1] < 1) & ~pt_fixed
 
 
 def _solve_schur_pcg(e, jc, jp, w, obs_cam, obs_pt, n_cams, n_pts, cam_fixed,
-                     pt_fixed, lam, pcg_iters: int = 30):
+                     pt_fixed, lam, pcg_iters: int = 30, reduce=_local):
     """Matrix-free Schur solve: preconditioned conjugate gradients on the
     reduced camera system, with S v computed through the observation lists,
     never forming S or the camera-point coupling (the path of global BA).
@@ -260,6 +266,10 @@ def _solve_schur_pcg(e, jc, jp, w, obs_cam, obs_pt, n_cams, n_pts, cam_fixed,
     ||r||^2 <= 1e-6 ||b||^2 (at most `pcg_iters` steps): every step runs,
     and a step after that changes nothing (``torch.where`` carries), where
     the JAX package leaves a ``lax.while_loop``; no step waits for the host.
+    Every sum over observations goes through `reduce` (the identity on one
+    device; an all-reduce over the ranks that each hold a slice of the
+    observations), so all the state of the conjugate gradient is the same
+    on every rank, and so is its stopping rule.
     -> (delta_c [K,6], delta_p [P,3]).
     """
     like = dict(dtype=e.dtype, device=e.device)
@@ -270,10 +280,10 @@ def _solve_schur_pcg(e, jc, jp, w, obs_cam, obs_pt, n_cams, n_pts, cam_fixed,
     jp_t = jp.transpose(1, 2)
 
     def seg_cam(v):
-        return torch.zeros((n_cams,) + v.shape[1:], **like).index_add_(0, obs_cam, v)
+        return reduce(torch.zeros((n_cams,) + v.shape[1:], **like).index_add_(0, obs_cam, v))
 
     def seg_pt(v):
-        return torch.zeros((n_pts,) + v.shape[1:], **like).index_add_(0, obs_pt, v)
+        return reduce(torch.zeros((n_pts,) + v.shape[1:], **like).index_add_(0, obs_pt, v))
 
     def rows(m, v):   # per-observation matrix-vector product
         return (m @ v[..., None])[..., 0]
@@ -336,12 +346,13 @@ def _solve_schur_pcg(e, jc, jp, w, obs_cam, obs_pt, n_cams, n_pts, cam_fixed,
 
 
 def _robust_lm(problem: BAProblem, cam: PinholeCamera, phase_iters, point_fixed,
-               lam0: float, solve) -> BAResult:
+               lam0: float, solve, reduce=_local) -> BAResult:
     """The two-phase robust LM schedule shared by both solvers: phase 0 with
     Huber, chi2 outlier exclusion between phases, later phases on inliers
     without Huber; a fixed number of steps with ``torch.where``
     accept/reject. `solve(prob, active, use_huber, pt_fixed, lam)` ->
-    (delta_c, delta_p)."""
+    (delta_c, delta_p). `reduce` sums the costs and per-point counts over
+    the ranks of a distributed solve (`_solve_schur_pcg`)."""
     problem = problem._replace(obs_cam=problem.obs_cam.long(),
                                obs_pt=problem.obs_pt.long())
     p = problem.points.shape[0]
@@ -356,19 +367,19 @@ def _robust_lm(problem: BAProblem, cam: PinholeCamera, phase_iters, point_fixed,
         # Such points are frozen for the phase and their lone observation
         # leaves the problem (against a frozen point it would wrongly drag
         # the camera). A stereo observation constrains depth: one suffices.
-        under = _under_constrained(problem, active, pt_fixed)
+        under = _under_constrained(problem, active, pt_fixed, reduce)
         pt_fixed_ph = pt_fixed | under
         active_ph = active & ~under[problem.obs_pt]
         lam = _scalar(lam0, points)
         cost = _total_cost(problem._replace(poses=poses, points=points), cam,
-                           active_ph, use_huber)
+                           active_ph, use_huber, reduce)
         for _ in range(iters):
             prob = problem._replace(poses=poses, points=points)
             delta_c, delta_p = solve(prob, active_ph, use_huber, pt_fixed_ph, lam)
             poses_new = se3.retract(poses, delta_c)
             points_new = points + torch.where(pt_fixed_ph[:, None], 0.0, delta_p)
             cost_new = _total_cost(problem._replace(poses=poses_new, points=points_new),
-                                   cam, active_ph, use_huber)
+                                   cam, active_ph, use_huber, reduce)
             # a non-finite step is never accepted: NaN poses turn z NaN, the
             # z-gate then masks every residual out and the collapsed cost
             # would pass the plain < test
@@ -392,7 +403,7 @@ def _robust_lm(problem: BAProblem, cam: PinholeCamera, phase_iters, point_fixed,
         # optimized: judged against the unmoved point they would read as
         # outliers and callers would erase the point's only observation; they
         # keep their prior status instead
-        unjudged = _under_constrained(problem, active, pt_fixed)[problem.obs_pt]
+        unjudged = _under_constrained(problem, active, pt_fixed, reduce)[problem.obs_pt]
         active = active & (inlier | unjudged)
     return BAResult(poses=poses, points=points, inlier=active, cost=cost)
 
@@ -429,10 +440,12 @@ def bundle_adjust_pcg(
     point_fixed: Optional[torch.Tensor] = None,
     lam0: float = 1e-4,
     pcg_iters: int = 30,
+    reduce=_local,
 ) -> BAResult:
     """Large-scale BA (global BA after a loop closure): the same robust LM
     schedule as `bundle_adjust` with the matrix-free PCG Schur solve, memory
-    O(observations)."""
+    O(observations). `reduce`: see `_solve_schur_pcg`; the observations of
+    `problem` are then this rank's slice and `inlier` covers only them."""
     k, p = problem.poses.shape[0], problem.points.shape[0]
 
     def solve(prob, active, use_huber, pt_fixed, lam):
@@ -440,6 +453,6 @@ def bundle_adjust_pcg(
         w, _ = _robust_weights(e, prob, use_huber)
         w = torch.where(active & (z > 1e-6), w, 0.0)
         return _solve_schur_pcg(e, jc, jp, w, prob.obs_cam, prob.obs_pt, k, p,
-                                prob.cam_fixed, pt_fixed, lam, pcg_iters)
+                                prob.cam_fixed, pt_fixed, lam, pcg_iters, reduce)
 
-    return _robust_lm(problem, cam, phase_iters, point_fixed, lam0, solve)
+    return _robust_lm(problem, cam, phase_iters, point_fixed, lam0, solve, reduce)

@@ -9,9 +9,11 @@ and, with ``--eval``, ATE and RPE against a ground-truth file.
 
 The flags are the JAX drivers', with ``--device`` (``cuda`` unless ``cpu``
 is asked for: without a card a driver raises, it never falls back to the
-CPU) and without the live viewer's ``--viewer``/``--viewer-dir``, which the
-port does not have yet. Images are read by the port's own PNG reader: no
-OpenCV is needed.
+CPU). ``--viewer`` starts the live viewer (``viewer/live.py``) beside the
+run, in every driver (the JAX package's ``rgbd_tum`` alone takes it): cv2
+windows where a display and OpenCV exist, else ``latest_frame.jpg`` and
+``latest_map.jpg`` published into ``--viewer-dir``. Images are read by the
+port's own PNG reader: no OpenCV is needed.
 """
 from __future__ import annotations
 
@@ -42,6 +44,11 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="print per-stage timing statistics at the end")
     p.add_argument("--device-trace", default=None,
                    help="directory for a torch.profiler trace of the run (Chrome format)")
+    p.add_argument("--viewer", action="store_true",
+                   help="live viewer (cv2 windows with a display; "
+                        "latest_frame.jpg/latest_map.jpg without one)")
+    p.add_argument("--viewer-dir", default=".",
+                   help="publish directory for the headless live viewer")
     p.add_argument("--device", default="cuda",
                    help="where the system runs: cuda (the default; raises without a "
                         "card) or cpu")
@@ -57,6 +64,15 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="Sim(3) alignment for the ATE (monocular: scale is "
                         "unobservable, the TUM tools' --scale analogue)")
     return p
+
+
+def make_viewer(system, args):
+    """-> LiveViewer or None (the reference gates its viewer thread on
+    bUseViewer, System.cc:105-112)."""
+    if not getattr(args, "viewer", False):
+        return None
+    from orbslam2_tpu_torch.viewer.live import LiveViewer
+    return LiveViewer(system, out_dir=args.viewer_dir)
 
 
 def make_system(args, sensor: Sensor, image_size=None,
@@ -90,7 +106,10 @@ def make_system(args, sensor: Sensor, image_size=None,
 
 
 def run_loop(system: SLAMSystem, frames: Iterable, track: Callable,
-             max_frames=None, trace_dir=None) -> None:
+             max_frames=None, trace_dir=None, viewer=None) -> None:
+    """Track every item of ``frames`` with ``track(system, item)``; each
+    item's (left) image goes to ``viewer`` after its frame, and the viewer
+    is closed at the end."""
     from orbslam2_tpu_torch.utils.profiling import device_trace
     ctx = device_trace(trace_dir) if trace_dir else contextlib.nullcontext()
     times = []
@@ -110,9 +129,13 @@ def run_loop(system: SLAMSystem, frames: Iterable, track: Callable,
             t0 = time.perf_counter()
             track(system, item)
             times.append(time.perf_counter() - t0)
+            if viewer is not None:
+                viewer.push_frame(item.gray if hasattr(item, "gray") else item.left)
             n += 1
             if max_frames is not None and n >= max_frames:
                 break
+    if viewer is not None:
+        viewer.close()
     if times:
         times = np.array(times)
         print(f"tracked {n} frames: median {np.median(times)*1e3:.1f} ms, "

@@ -5,8 +5,8 @@
 """
 from __future__ import annotations
 
-from orbslam2_tpu_torch.examples.common import (build_parser, make_system, run_loop,
-                                                save_outputs)
+from orbslam2_tpu_torch.examples.common import (build_parser, make_system, make_viewer,
+                                                run_loop, save_outputs)
 from orbslam2_tpu_torch.io.datasets import euroc_mono_frames
 from orbslam2_tpu_torch.system import Sensor
 
@@ -20,7 +20,8 @@ def main(argv=None):
     system = make_system(args, Sensor.MONOCULAR, capacity_hint=(1024, 100_000))
     run_loop(system, euroc_mono_frames(args.data_dir, args.timestamps),
              lambda s, it: s.track_monocular(it.gray, it.timestamp),
-             args.max_frames, trace_dir=args.device_trace)
+             args.max_frames, trace_dir=args.device_trace,
+             viewer=make_viewer(system, args))
     return system, save_outputs(system, args)
 
 

@@ -5,8 +5,8 @@
 """
 from __future__ import annotations
 
-from orbslam2_tpu_torch.examples.common import (build_parser, make_system, run_loop,
-                                                save_outputs)
+from orbslam2_tpu_torch.examples.common import (build_parser, make_system, make_viewer,
+                                                run_loop, save_outputs)
 from orbslam2_tpu_torch.io.datasets import kitti_mono_frames
 from orbslam2_tpu_torch.system import Sensor
 
@@ -19,7 +19,8 @@ def main(argv=None):
     system = make_system(args, Sensor.MONOCULAR, capacity_hint=(2048, 200_000))
     run_loop(system, kitti_mono_frames(args.sequence_dir),
              lambda s, it: s.track_monocular(it.gray, it.timestamp),
-             args.max_frames, trace_dir=args.device_trace)
+             args.max_frames, trace_dir=args.device_trace,
+             viewer=make_viewer(system, args))
     return system, save_outputs(system, args)
 
 

@@ -5,8 +5,8 @@
 """
 from __future__ import annotations
 
-from orbslam2_tpu_torch.examples.common import (build_parser, make_system, run_loop,
-                                                save_outputs)
+from orbslam2_tpu_torch.examples.common import (build_parser, make_system, make_viewer,
+                                                run_loop, save_outputs)
 from orbslam2_tpu_torch.io.datasets import tum_rgbd_frames
 from orbslam2_tpu_torch.system import Sensor
 
@@ -21,7 +21,8 @@ def main(argv=None):
     factor = getattr(system.cfg, "depth_map_factor", 5000.0)
     frames = tum_rgbd_frames(args.dataset_dir, args.associations, factor)
     run_loop(system, frames, lambda s, it: s.track_rgbd(it.gray, it.depth, it.timestamp),
-             args.max_frames, trace_dir=args.device_trace)
+             args.max_frames, trace_dir=args.device_trace,
+             viewer=make_viewer(system, args))
     return system, save_outputs(system, args)
 
 

@@ -9,8 +9,8 @@ pairs are rectified on the system's device.
 """
 from __future__ import annotations
 
-from orbslam2_tpu_torch.examples.common import (build_parser, make_system, run_loop,
-                                                save_outputs)
+from orbslam2_tpu_torch.examples.common import (build_parser, make_system, make_viewer,
+                                                run_loop, save_outputs)
 from orbslam2_tpu_torch.io.datasets import EurocRectifier, euroc_stereo_frames
 from orbslam2_tpu_torch.system import Sensor
 
@@ -25,7 +25,8 @@ def main(argv=None):
     rectifier = EurocRectifier(args.settings, device=system.device)
     run_loop(system, euroc_stereo_frames(args.data_dir, args.timestamps, rectifier),
              lambda s, it: s.track_stereo(it.left, it.right, it.timestamp),
-             args.max_frames, trace_dir=args.device_trace)
+             args.max_frames, trace_dir=args.device_trace,
+             viewer=make_viewer(system, args))
     return system, save_outputs(system, args)
 
 

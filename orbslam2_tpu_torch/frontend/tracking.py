@@ -168,6 +168,10 @@ class Tracker:
         self._map_inliers = 0
         self._covis_w: Optional[np.ndarray] = None
         self.last_reloc_frame_id: int = -1000000
+        # optional hook: called as (timestamp, tcw or None) once per applied
+        # frame, in order (see _record_trajectory): the solved-pose stream of
+        # the ROS pose topic
+        self.applied_pose_cb = None
         # monocular: set by track_mono; the first frame of a two-view
         # initialization waits in _init_ref for its partner
         self.is_mono = False
@@ -1375,6 +1379,11 @@ class Tracker:
 
     # ------------------------------------------------------------------
     def _record_trajectory(self, fr: frame_mod.Frame, lost: bool) -> None:
+        # solved-pose hook: with the pipelined fetch this fires a frame after
+        # the track_* call, which returned the motion-model prediction for a
+        # frame in flight; the stamps stay the frames' own
+        if self.applied_pose_cb is not None:
+            self.applied_pose_cb(fr.timestamp, None if lost else fr.tcw.copy())
         if self.ref_kf >= 0 and self.map.kf_valid[self.ref_kf]:
             tcr = fr.tcw @ np.linalg.inv(self.map.kf_pose[self.ref_kf])
             ref_order = int(self.map.kf_order[self.ref_kf])

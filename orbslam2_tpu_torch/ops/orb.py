@@ -276,26 +276,33 @@ class ORBExtractor:
             *levels[:4], self.pattern_t, self.level_budgets)
         return self._keypoints(levels, angle, desc), tuple(levels[1])
 
-    def extract_pair_with_pyramid(self, left: torch.Tensor, right: torch.Tensor):
-        """Both images of a stereo pair, as two ``extract_with_pyramid``
-        calls would give them, with the orientation and descriptors of both
-        images' levels from one call of the fused kernel (its level table
-        holds 16 levels; with more than 8 levels an image's levels are split
-        into tables of at most 16). -> ((kp_l, pyr_l), (kp_r, pyr_r))."""
-        per_image = [self._levels(left), self._levels(right)]
-        both = [sum((list(lv[i]) for lv in per_image), []) for i in range(4)]
-        budgets = list(self.level_budgets) * 2
+    def extract_batch_with_pyramid(self, images):
+        """Several images of this geometry, each as ``extract_with_pyramid``
+        would give it, with the orientation and descriptors of all the
+        images' levels from ceil(B * L / 16) calls of the fused kernel: the
+        levels of every image one after another, cut into tables of at most
+        ``cuda_orb.MAX_LEVELS`` (an image's levels may span two tables).
+        images: a sequence of [H, W] f32 tensors, or a [B, H, W] tensor.
+        -> [(kp, pyr)] in the order of the images."""
+        per_image = [self._levels(image) for image in images]
+        fields = [sum((list(lv[i]) for lv in per_image), []) for i in range(4)]
+        budgets = list(self.level_budgets) * len(per_image)
         angles, descs = [], []
         for lo in range(0, len(budgets), cuda_orb.MAX_LEVELS):
             hi = lo + cuda_orb.MAX_LEVELS
             angle, desc = cuda_orb.fused_orient_describe_levels(
-                *(field[lo:hi] for field in both), self.pattern_t, budgets[lo:hi])
+                *(field[lo:hi] for field in fields), self.pattern_t, budgets[lo:hi])
             angles.append(angle)
             descs.append(desc)
         angle, desc = torch.cat(angles), torch.cat(descs)
         n = self.n_total
-        return tuple((self._keypoints(lv, angle[i * n:(i + 1) * n], desc[i * n:(i + 1) * n]),
-                      tuple(lv[1])) for i, lv in enumerate(per_image))
+        return [(self._keypoints(lv, angle[i * n:(i + 1) * n], desc[i * n:(i + 1) * n]),
+                 tuple(lv[1])) for i, lv in enumerate(per_image)]
+
+    def extract_pair_with_pyramid(self, left: torch.Tensor, right: torch.Tensor):
+        """Both images of a stereo pair in one batch (at up to 8 levels, one
+        call of the fused kernel). -> ((kp_l, pyr_l), (kp_r, pyr_r))."""
+        return tuple(self.extract_batch_with_pyramid((left, right)))
 
     def _levels(self, image: torch.Tensor):
         """The level loop of one image: pyramid, blur, FAST, NMS, cell and

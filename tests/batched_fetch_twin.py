@@ -14,7 +14,7 @@ from orbslam2_tpu_torch.io.evaluate import ate_rmse
 from orbslam2_tpu_torch.ops.orb import ORBConfig as TORBConfig
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-import torch_port_helpers  # noqa: F401  (caps torch's intra-op threads)
+from torch_port_helpers import beside
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 CFG_KW = dict(th_depth=4.0, max_keyframes=64, max_points=8192, local_point_cap=2048,
@@ -39,7 +39,9 @@ def run(k: int) -> dict:
             cam=TCamera(**CAM_KW), orb=TORBConfig(n_features=800, n_levels=4),
             fetch_batch=k, **CFG_KW), Sensor.RGBD, device="cpu")}
     out = {}
-    for name, system in systems.items():
+
+    def drive(name):
+        system = systems[name]
         for i, (g, d) in enumerate(frames):
             system.track_rgbd(g, d, i / seq.fps)
         system.wait_mapping_idle()
@@ -48,6 +50,8 @@ def run(k: int) -> dict:
         out[name] = dict(tracked=int((~lost).sum()), n=len(lost), ate=ate_rmse(est, gt),
                          kf=system.map.n_keyframes())
         system.shutdown()
+
+    beside(lambda: drive("jax"), lambda: drive("torch"))
     return out
 
 

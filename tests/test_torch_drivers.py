@@ -180,14 +180,15 @@ def test_device_trace_writes_a_chrome_trace(tum_tree, tmp_path):
 
 
 def test_drivers_have_the_jax_flags_and_device(monkeypatch):
-    """The JAX drivers' flags (examples/common.py), less the live viewer's,
-    plus --device, whose default is the card."""
+    """The JAX drivers' flags (examples/common.py), the live viewer's
+    included, plus --device, whose default is the card."""
     monkeypatch.syspath_prepend(REPO)
     jax_common = importlib.import_module("examples.common")
     theirs = {s for a in jax_common.build_parser("x")._actions for s in a.option_strings}
     ours = {s for a in common.build_parser("x")._actions for s in a.option_strings}
-    assert ours == (theirs - {"--viewer", "--viewer-dir"}) | {"--device"}
-    assert common.build_parser("x").parse_args(["s.yaml"]).device == "cuda"
+    assert ours == theirs | {"--device"}
+    args = common.build_parser("x").parse_args(["s.yaml"])
+    assert args.device == "cuda" and not args.viewer and args.viewer_dir == "."
 
 
 @pytest.mark.parametrize("name", sorted(DRIVERS))

@@ -29,7 +29,7 @@ from orbslam2_tpu_torch.io.evaluate import ate_rmse
 from orbslam2_tpu_torch.ops.orb import ORBConfig as TORBConfig
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-import torch_port_helpers  # noqa: F401  (caps torch's intra-op threads)
+from torch_port_helpers import beside
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 CFG_KW = dict(th_depth=4.0, max_keyframes=32, max_points=8192, local_point_cap=2048,
@@ -59,15 +59,19 @@ def host_staged():
     kw = dict(max_frames_between_kf=10, fused_frame=False, async_mapping=False,
               pipelined_fetch=False)
     out = {"gt": np.stack([np.linalg.inv(p) for p in seq.poses])}
-    for name, system in (("jax", _jax(device_local_map=False, **kw)),
-                         ("host", _port(device_local_map=False, **kw)),
-                         ("device", _port(device_local_map=True, **kw))):
+
+    def drive(name, system):
         for i, (g, d) in enumerate(frames):
             system.track_rgbd(g, d, i / seq.fps)
         out[name] = dict(est=system.tracker.full_trajectory_twc(),
                          lost=system.tracker.trajectory_lost_mask(),
                          kf=system.map.n_keyframes())
         system.shutdown()
+
+    # the JAX drive beside the port's two (all three synchronous)
+    beside(lambda: drive("jax", _jax(device_local_map=False, **kw)),
+           lambda: [drive(name, _port(device_local_map=dev, **kw))
+                    for name, dev in (("host", False), ("device", True))])
     return out
 
 

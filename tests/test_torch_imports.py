@@ -105,9 +105,31 @@ def test_every_module_is_listed():
             "io.settings", "io.png", "io.datasets", "utils.native_build",
             "examples.common", "examples.rgbd_tum", "examples.mono_tum",
             "examples.mono_kitti", "examples.mono_euroc", "examples.stereo_kitti",
-            "examples.stereo_euroc"}
+            "examples.stereo_euroc", "examples.live_camera", "examples.ros_demo",
+            "examples.ar_demo", "parallel.mesh", "parallel.dist_ba",
+            "parallel.multi_session", "parallel.dryrun", "viewer.headless",
+            "viewer.live", "viewer.ar", "viewer.raster", "io.ros_nodes", "io.jpeg"}
     have = {m[len("orbslam2_tpu_torch."):] for m in MODULES} | {"__init__"}
     assert want <= have, want - have
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Each module of the JAX package has one of the same name in the port,
+    but ops/pallas_orb.py (the TPU kernel), whose counterpart is
+    ops/cuda_orb.py (the Hopper kernel's wrappers)."""
+    jax_root = os.path.join(REPO, "orbslam2_tpu")
+    jax_modules = {
+        os.path.relpath(os.path.join(root, f), jax_root)[:-3].replace(os.sep, ".")
+        .removesuffix(".__init__")           # a package: its name
+        for root, _, files in os.walk(jax_root) for f in files if f.endswith(".py")}
+    have = {m[len("orbslam2_tpu_torch."):] for m in MODULES} | {"__init__"}
+    counterpart = {"ops.pallas_orb": "ops.cuda_orb"}
+    missing = {m for m in jax_modules if counterpart.get(m, m) not in have}
+    assert not missing, sorted(missing)
+    # the JAX drivers under examples/ have theirs in the port's examples package
+    jax_drivers = {f[:-3] for f in os.listdir(os.path.join(REPO, "examples"))
+                   if f.endswith(".py") and f != "__init__.py"}
+    assert not {f"examples.{d}" for d in jax_drivers} - have
 
 
 def test_port_and_chip_smoke_import_without_jax():

@@ -32,7 +32,7 @@ from orbslam2_tpu_torch.io.evaluate import rpe
 from orbslam2_tpu_torch.ops.orb import ORBConfig as TORBConfig
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-import torch_port_helpers  # noqa: F401  (caps torch's intra-op threads)
+from torch_port_helpers import beside
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 CFG_KW = dict(th_depth=4.0, max_points=8192, local_point_cap=2048, min_init_features=300)
@@ -59,7 +59,7 @@ def vo():
     frames = [seq.render(i) for i in range(MAPPED + LOCALIZED)]
     out = {"gt": np.stack([np.linalg.inv(seq.poses[i])
                            for i in range(MAPPED, MAPPED + LOCALIZED)])}
-    for name, system in _both(max_keyframes=64, max_frames_between_kf=10).items():
+    def run(name, system):
         for i in range(MAPPED):
             system.track_rgbd(*frames[i], i / seq.fps)
         system.activate_localization_mode()
@@ -75,6 +75,9 @@ def vo():
             lost=system.tracker.trajectory_lost_mask()[MAPPED:],
             est=system.tracker.full_trajectory_twc()[MAPPED:], vo_frames=vo_frames)
         system.shutdown()
+
+    systems = _both(max_keyframes=64, max_frames_between_kf=10)
+    beside(lambda: run("jax", systems["jax"]), lambda: run("torch", systems["torch"]))
     return out
 
 

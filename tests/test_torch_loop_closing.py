@@ -46,7 +46,7 @@ from orbslam2_tpu_torch.solvers import horn
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
 from torch_port_helpers import camera_centres as centres
-from torch_port_helpers import j, jax_sample_sets, n, t
+from torch_port_helpers import beside, j, jax_sample_sets, n, t
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 JCAM, TCAM = JCamera(**CAM_KW), PinholeCamera(**CAM_KW)
@@ -449,7 +449,9 @@ def closers(drive):
     jlc.pose_graph.optimize_essential_graph = recording
     try:
         kf, wids = snap["kf"], snap["wids"]
-        closed = (jcloser.process_keyframe(kf, wids), tcloser.process_keyframe(kf, wids))
+        # each closer on its own map copy, the port's beside JAX's
+        closed = beside(lambda: jcloser.process_keyframe(kf, wids),
+                        lambda: tcloser.process_keyframe(kf, wids))
     finally:
         horn.draw_sample_sets = draw
         jlc.pose_graph.optimize_essential_graph = solve_eg

@@ -27,6 +27,7 @@ keyframe, mono_async_mapping, one monocular triangulation of the local
 mapper, and the "mono" kind of the fused frame step (the module holding the
 describe kernel, whose plain version runs here).
 """
+import concurrent.futures
 import copy
 from types import SimpleNamespace
 
@@ -112,63 +113,73 @@ def runs():
     gt = np.stack([np.linalg.inv(p) for p in seq.poses])[:N_FRAMES]
 
     # the JAX package, with the map before its last inline mapping kept
-    jsys = JSystem(jtracking.SLAMConfig(cam=JCAM, orb=JORBConfig(n_features=800, n_levels=NL),
-                                        **CFG_KW), JSensor.MONOCULAR)
-    jsolves, jinit_map, before_last = [], {}, {}
-    solve_j = _watch(jinit, jsolves)
-    _initial_map(jsys.tracker, jinit_map)
-    process = jsys.local_mapper.process_keyframe
+    def run_jax():
+        jsys = JSystem(jtracking.SLAMConfig(cam=JCAM, orb=JORBConfig(n_features=800,
+                                                                     n_levels=NL),
+                                            **CFG_KW), JSensor.MONOCULAR)
+        jsolves, jinit_map, before_last = [], {}, {}
+        solve_j = _watch(jinit, jsolves)
+        _initial_map(jsys.tracker, jinit_map)
+        process = jsys.local_mapper.process_keyframe
 
-    def keep_then_process(kf, backlog=False):
-        before_last.update(kf=int(kf), map=_snapshot(jsys.map))
-        return process(kf, backlog)
-    jsys.local_mapper.process_keyframe = keep_then_process
-    try:
-        for i in range(N_FRAMES):
-            jsys.track_monocular(frames[i], i / 30.0)
-        jres = _result(jsys, gt)
-    finally:
-        jinit.initialize_two_view = solve_j
-    jres.update(native=jnative.available(), solves=jsolves, init=jinit_map,
-                sync=jsys.mapping_worker.sync_mapping)
+        def keep_then_process(kf, backlog=False):
+            before_last.update(kf=int(kf), map=_snapshot(jsys.map))
+            return process(kf, backlog)
+        jsys.local_mapper.process_keyframe = keep_then_process
+        try:
+            for i in range(N_FRAMES):
+                jsys.track_monocular(frames[i], i / 30.0)
+            jres = _result(jsys, gt)
+        finally:
+            jinit.initialize_two_view = solve_j
+        jres.update(native=jnative.available(), solves=jsolves, init=jinit_map,
+                    sync=jsys.mapping_worker.sync_mapping)
+        return jsys, jres, before_last
 
-    # the port, with JAX's sample sets
-    system = SLAMSystem(ttracking.SLAMConfig(cam=TCAM, orb=TORBConfig(n_features=800,
-                                                                       n_levels=NL), **CFG_KW),
-                        Sensor.MONOCULAR, device="cpu")
-    tr = system.tracker
-    tsolves, tinit_map = [], {}
-    solve_t = _watch(tinit, tsolves)
-    _initial_map(tr, tinit_map)
-    draw = horn.draw_sample_sets
-    horn.draw_sample_sets = jax_sample_sets
-    dispatched, fused_applied, kf_frames, rescued = [], set(), [], []
-    dispatch, apply_, create = tr._fused_dispatch, tr._fused_apply, tr._create_new_keyframe
+    # both drives at once, the JAX one on a thread of its own: each is
+    # deterministic (mapping inline, a fetch without a thread), and the
+    # patched module attributes are each package's own
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(run_jax)
+        # the port, with JAX's sample sets
+        system = SLAMSystem(ttracking.SLAMConfig(cam=TCAM, orb=TORBConfig(n_features=800,
+                                                                           n_levels=NL),
+                                                 **CFG_KW),
+                            Sensor.MONOCULAR, device="cpu")
+        tr = system.tracker
+        tsolves, tinit_map = [], {}
+        solve_t = _watch(tinit, tsolves)
+        _initial_map(tr, tinit_map)
+        draw = horn.draw_sample_sets
+        horn.draw_sample_sets = jax_sample_sets
+        dispatched, fused_applied, kf_frames, rescued = [], set(), [], []
+        dispatch, apply_, create = tr._fused_dispatch, tr._fused_apply, tr._create_new_keyframe
 
-    def log_dispatch(kind, imgs_d, timestamp, frame_id=None, chain_off_pipe=True):
-        rec = dispatch(kind, imgs_d, timestamp, frame_id, chain_off_pipe)
-        dispatched.append(rec["frame_id"])
-        return rec
+        def log_dispatch(kind, imgs_d, timestamp, frame_id=None, chain_off_pipe=True):
+            rec = dispatch(kind, imgs_d, timestamp, frame_id, chain_off_pipe)
+            dispatched.append(rec["frame_id"])
+            return rec
 
-    def log_apply(rec, fetched):
-        fused_applied.add(rec["frame_id"])
-        ret = apply_(rec, fetched)
-        if ret is ttracking._MISSED_KEYFRAME:
-            rescued.append(rec["frame_id"])
-        return ret
+        def log_apply(rec, fetched):
+            fused_applied.add(rec["frame_id"])
+            ret = apply_(rec, fetched)
+            if ret is ttracking._MISSED_KEYFRAME:
+                rescued.append(rec["frame_id"])
+            return ret
 
-    def log_create(fr):
-        kf_frames.append(int(fr.frame_id))
-        return create(fr)
-    tr._fused_dispatch, tr._fused_apply, tr._create_new_keyframe = \
-        log_dispatch, log_apply, log_create
-    try:
-        for i in range(N_FRAMES):
-            system.track_monocular(frames[i], i / 30.0)
-        tres = _result(system, gt)
-    finally:
-        tinit.initialize_two_view = solve_t
-        horn.draw_sample_sets = draw
+        def log_create(fr):
+            kf_frames.append(int(fr.frame_id))
+            return create(fr)
+        tr._fused_dispatch, tr._fused_apply, tr._create_new_keyframe = \
+            log_dispatch, log_apply, log_create
+        try:
+            for i in range(N_FRAMES):
+                system.track_monocular(frames[i], i / 30.0)
+            tres = _result(system, gt)
+        finally:
+            tinit.initialize_two_view = solve_t
+            horn.draw_sample_sets = draw
+        jsys, jres, before_last = jax_run.result()
     tres.update(solves=tsolves, init=tinit_map, dispatched=dispatched, rescued=rescued,
                 kf_fused=[f for f in kf_frames if f in fused_applied],
                 retracked=tr.retracked_frames, rebuilt=tr.rebuilt_frames,

@@ -30,7 +30,7 @@ from orbslam2_tpu_torch.geometry.camera import PinholeCamera as TCamera
 from orbslam2_tpu_torch.ops.orb import ORBConfig as TORBConfig
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-from torch_port_helpers import n, t
+from torch_port_helpers import beside, n, t
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 CFG_KW = dict(th_depth=4.0, max_keyframes=64, max_points=8192, local_point_cap=2048,
@@ -80,11 +80,14 @@ def inline(forward):
     frames, gt = forward
     jsys, tsys = _systems(async_mapping=False)
     out = {}
-    for name, system in (("jax", jsys), ("torch", tsys)):
+
+    def drive(name, system):
         ret = [system.track_rgbd(g, d, i / 30.0) for i, (g, d) in enumerate(frames)]
         out[name] = dict(ret=ret, est=system.tracker.full_trajectory_twc(),
                          lost=system.tracker.trajectory_lost_mask(),
                          kf=system.map.n_keyframes())
+
+    beside(lambda: drive("jax", jsys), lambda: drive("torch", tsys))
     out["fused"] = tsys.tracker.stats
     tsys.shutdown()
     jsys.shutdown()

@@ -30,7 +30,7 @@ from orbslam2_tpu_torch.ops.orb import ORBConfig as TORBConfig
 from orbslam2_tpu_torch.place.pretrained import get_default_vocabulary
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-import torch_port_helpers  # noqa: F401  (caps torch's intra-op threads)
+from torch_port_helpers import beside
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 CFG_KW = dict(th_depth=4.0, max_keyframes=64, max_points=8192, local_point_cap=2048,
@@ -62,8 +62,8 @@ def runs():
             system.reset()
             assert system.map.n_keyframes() == 0
             assert system.tracking_state() == ttracking.TrackingState.NOT_INITIALIZED
-        ret_j = _drive(jtr.track_rgbd, frames)
-        ret_t = _drive(system.track_rgbd, frames)
+        ret_j, ret_t = beside(lambda: _drive(jtr.track_rgbd, frames),
+                              lambda: _drive(system.track_rgbd, frames))
         sl = slice(k * N_FRAMES, (k + 1) * N_FRAMES)
         out[name] = dict(
             gt=np.stack([np.linalg.inv(p) for p in seq.poses]),

@@ -41,7 +41,8 @@ from orbslam2_tpu_torch.io.evaluate import ate_rmse
 from orbslam2_tpu_torch.ops import cuda_orb, orb as torb, stereo as tst
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-from torch_port_helpers import camera_centres, j, jax_keypoints, n, t, torch_keypoints
+from torch_port_helpers import (beside, camera_centres, j, jax_keypoints, n, t,
+                                torch_keypoints)
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 JCAM, TCAM = JCamera(**CAM_KW), TCamera(**CAM_KW)
@@ -235,9 +236,24 @@ def test_paired_extraction_is_two_extractions_in_one_describe_call(pair, n_level
     assert paired[0][0].octave is ex._slot_octave and paired[1][0].size is ex._slot_size
 
 
-def test_stereo_frame_build_matches_jax(pair):
+DRIVE_KW = dict(th_depth=4.0, max_keyframes=64, max_points=8192, local_point_cap=2048,
+                max_frames_between_kf=10, min_init_features=200, pipelined_fetch=False)
+
+
+@pytest.fixture(scope="module")
+def jax_system():
+    """The JAX SLAMSystem of test_stereo_drive_matches_jax, made once: the
+    frame-build and fused-step tests run its tracker's extractor, so the
+    JAX programs they compile (cached per extractor) are the drive's."""
+    system = JSystem(JConfig(cam=JCAM, orb=jorb.ORBConfig(n_features=NF, n_levels=NL),
+                             **DRIVE_KW), JSensor.STEREO)
+    yield system
+    system.shutdown()
+
+
+def test_stereo_frame_build_matches_jax(pair, jax_system):
     """Each package's own extractor, matcher and undistortion on one pair."""
-    kp_j, _, ur_j, d_j = jframe._stereo_program(pair["jex"], JCAM, SF)(
+    kp_j, _, ur_j, d_j = jframe._stereo_program(jax_system.tracker.extractor, JCAM, SF)(
         j(pair["gl"]), j(pair["gr"]))
     tex = torb.ORBExtractor(torb.ORBConfig(n_features=NF, n_levels=NL), (240, 320),
                             device="cpu")
@@ -275,15 +291,14 @@ def staged_stereo():
                     m.pt_max_dist])
 
 
-def test_fused_stereo_step_matches_jax(staged_stereo):
+def test_fused_stereo_step_matches_jax(staged_stereo, jax_system):
     """fused_frame_step(("stereo", ...)) against _fused_stereo_program: the
     limits of tests/test_torch_fused_step.py, with the frame built by each
     package's own extractor and matcher."""
     s = staged_stereo
     tr = s["tr"]
     pos, desc, valid, normal, dmin, dmax = s["pt"]
-    jex = jorb.ORBExtractor(jorb.ORBConfig(n_features=NF, n_levels=NL), (240, 320))
-    out_j = jk._fused_stereo_program(jex, JCAM, SF, NL)(
+    out_j = jk._fused_stereo_program(jax_system.tracker.extractor, JCAM, SF, NL)(
         j(s["gl"]), j(s["gr"]), j(s["tcw_pred"]), jax_keypoints(s["last_kp"]),
         j(s["last_pid"]), j(s["local_ids"]), j(s["local_sel"]), 1.0,
         j(pos), j(desc), j(valid), j(normal), j(dmin), j(dmax))
@@ -303,7 +318,7 @@ def test_fused_stereo_step_matches_jax(staged_stereo):
     assert gap < 1e-3
 
 
-def test_stereo_drive_matches_jax():
+def test_stereo_drive_matches_jax(jax_system):
     """The whole slice: the 20-frame lateral stereo drive of
     tests/test_e2e_stereo.py through both packages' SLAMSystem.track_stereo
     (mapping worker on, pipelined fetch off). Every frame tracked, ATE under
@@ -311,22 +326,20 @@ def test_stereo_drive_matches_jax():
     seq = SyntheticSequence(JCAM, n_frames=20, trajectory="lateral", seed=3,
                             world="cluttered")
     frames = [seq.render_stereo(i)[:2] for i in range(seq.n_frames)]
-    kw = dict(th_depth=4.0, max_keyframes=64, max_points=8192, local_point_cap=2048,
-              max_frames_between_kf=10, min_init_features=200, pipelined_fetch=False)
-    runs = []
-    for system in (JSystem(JConfig(cam=JCAM, orb=jorb.ORBConfig(n_features=NF, n_levels=NL),
-                                   **kw), JSensor.STEREO),
-                   SLAMSystem(SLAMConfig(cam=TCAM, orb=torb.ORBConfig(n_features=NF,
-                                                                      n_levels=NL), **kw),
-                              Sensor.STEREO, device="cpu")):
+
+    def run(system):
         try:
             ok = sum(system.track_stereo(l, r, i / seq.fps) is not None
                      for i, (l, r) in enumerate(frames))
             assert system.wait_mapping_idle(120)
-            runs.append((ok, system.tracker.full_trajectory_twc(), system.map.n_keyframes()))
+            return ok, system.tracker.full_trajectory_twc(), system.map.n_keyframes()
         finally:
             system.shutdown()
-    (ok_j, est_j, _), (ok_t, est_t, nkf_t) = runs
+
+    port = SLAMSystem(SLAMConfig(cam=TCAM, orb=torb.ORBConfig(n_features=NF, n_levels=NL),
+                                 **DRIVE_KW), Sensor.STEREO, device="cpu")
+    (ok_j, est_j, _), (ok_t, est_t, nkf_t) = beside(lambda: run(jax_system),
+                                                    lambda: run(port))
     gt = np.stack([np.linalg.inv(seq.poses[i]) for i in range(seq.n_frames)])
     assert ok_t == ok_j == seq.n_frames
     assert ate_rmse(est_t, gt) < 0.03

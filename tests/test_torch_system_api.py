@@ -24,7 +24,7 @@ from orbslam2_tpu_torch.geometry.camera import PinholeCamera as TCamera
 from orbslam2_tpu_torch.ops.orb import ORBConfig as TORBConfig
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-from torch_port_helpers import camera_centres
+from torch_port_helpers import beside, camera_centres
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 CFG_KW = dict(th_depth=4.0, max_keyframes=32, max_points=8192, local_point_cap=2048,
@@ -50,8 +50,8 @@ def gba():
     seq = SyntheticSequence(JCamera(**CAM_KW), n_frames=13, trajectory="forward", seed=6)
     frames = [seq.render(i) for i in range(13)]
     out = {"frames": frames, "seq": seq}
-    for name, system in (("jax", _jax(max_frames_between_kf=5, force_kf_every=4)),
-                         ("torch", _port(max_frames_between_kf=5, force_kf_every=4))):
+
+    def run(name, system):
         for i in range(12):
             system.track_rgbd(*frames[i], i / seq.fps)
         system.wait_mapping_idle()
@@ -62,6 +62,9 @@ def gba():
         ids = m.keyframe_ids()
         out[name] = dict(system=system, before=before, ids=ids, after=m.kf_pose.copy(),
                          moved_index=m.change_index > change)
+
+    beside(lambda: run("jax", _jax(max_frames_between_kf=5, force_kf_every=4)),
+           lambda: run("torch", _port(max_frames_between_kf=5, force_kf_every=4)))
     yield out
     for name in ("jax", "torch"):
         out[name]["system"].shutdown()

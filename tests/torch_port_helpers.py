@@ -2,6 +2,8 @@
 inputs go through a JAX function of orbslam2_tpu and its PyTorch counterpart
 in orbslam2_tpu_torch (device "cpu"), and the outputs are compared as numpy
 arrays."""
+import concurrent.futures
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,3 +107,15 @@ def smooth_image(seed, h, w, sigma=1.5):
     img = rng.uniform(0, 255, (h, w)).astype(np.float32)
     k = jorb.gaussian_kernel1d(sigma, 3)
     return np.asarray(jorb._separable_conv(jnp.asarray(img), k))
+
+
+def beside(first, second):
+    """-> (first(), second()), ``first`` run on a thread of its own while
+    ``second`` runs on this one. For two runs that do not depend on timing
+    (mapping inline, a fetch that waits for its frame), such as one drive in
+    each package: both spend most of their time outside the interpreter, so
+    they overlap."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        a = pool.submit(first)
+        b = second()
+        return a.result(), b
