@@ -147,10 +147,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             closer solves with scale, a loop is closed, the whole
             trajectory's scale error does not grow over the loop, the
             pre-loop window's grows at most 1.5 times and the Sim3 ATE is
-            under 0.30 m. 17d: that tracker set LOST without a motion model
+            under 0.30 m; prints the frame by which the loop closed, the
+            frames lost after it and the ids remapped to the point they were
+            merged into. 17d: that tracker set LOST without a motion model
             relocalizes on frame first+2 through the keyframe database
             (EPnP runs), within 0.1 in rotation and 0.15 in translation of
-            the map's own estimate
+            the map's own estimate. 17e: replaced points in the last frame
+            (Tracking::CheckReplacedInLastFrame): after 17a's drive, half of
+            the points its last frame tracked are merged into duplicates
+            (add_point at the same position and descriptor, replace_points
+            under the map lock) and the next frame (one more step of the
+            last velocity) is tracked through track_monocular; a copy of
+            the tracker taken before the merge tracks the same frame without
+            it. Fails unless the motion model's matches and inliers and the
+            final inliers are equal, the camera centres within 1e-5 m, the
+            ids remapped exactly the merged points' slots (half the frame's
+            tracked points), the device carry dropped with the step given
+            the remapped ids, a merged point's slot handed out again before
+            the frame (on another copy) not given as the last frame's point,
+            and the kernel launched once per frame
 
 18. drivers the dataset drivers (python -m orbslam2_tpu_torch.examples.*) run in
             process with --device cuda and --eval on sequences the port's
@@ -217,6 +232,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -645,7 +661,8 @@ def drive(name, track, tracker, frames, seq, pace=None, pipelined=False) -> dict
     return dict(launches=launches, first_ok=first_ok, tracked=tracked,
                 fused_frames=fused_frames, rebuilt_frames=tracker.rebuilt_frames,
                 retracked_frames=tracker.retracked_frames,
-                revalidated_frames=tracker.revalidated_frames, ms_per_frame=ms_per_frame,
+                revalidated_frames=tracker.revalidated_frames,
+                remapped_ids=tracker.remapped_ids, ms_per_frame=ms_per_frame,
                 median_ms=float(np.median(steady)),
                 p95_ms=float(np.percentile(steady, 95)),
                 mhz=clocks.mhz or [float("nan")])
@@ -671,7 +688,8 @@ def describe(name, tracker, d, ate, n_frames) -> None:
           f"(frames {WARM_FRAMES}..{n_frames - 1}, host clock around a synchronised "
           f"loop), median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms; kernel "
           f"launches {d['launches']}, fused frames {d['fused_frames']} ({d['revalidated_frames']} "
-          f"dropped associations the mapper changed mid-step); SM clock over "
+          f"with associations the mapper changed mid-step), ids remapped to the point "
+          f"they were merged into {d['remapped_ids']}; SM clock over "
           f"the drive min/median/max {min(mhz):.0f}/{np.median(mhz):.0f}/{max(mhz):.0f} "
           f"MHz ({len(mhz)} samples)", flush=True)
     print(tracker.stats.report(), flush=True)
@@ -2084,6 +2102,7 @@ def mono_drive(name, system, seq, n_frames, after=None) -> dict:
     return dict(launches=launches, first_ok=first, tracked=int(len(ok_at)),
                 lost_after_init=(np.flatnonzero(lost[first:]) + first).tolist(),
                 redispatched=tracker.retracked_frames, rebuilt=tracker.rebuilt_frames,
+                remapped_ids=tracker.remapped_ids, revalidated_frames=tracker.revalidated_frames,
                 keyframes=int(system.map.n_keyframes()), points=int(system.map.n_points()),
                 median_ms=float(np.median(steady)), p95_ms=float(np.percentile(steady, 95)),
                 inline_mapping_ms=kf_ms, lost=lost)
@@ -2106,7 +2125,8 @@ def drive_mono(cam, orb_cfg):
     fetch, fetch_batch 1, the worker with each keyframe mapped inline), no
     vocabulary, 60 frames of the lateral sequence back to back. The stage
     timer is switched on (it times, it configures nothing). -> (entries, the
-    last successful two-view problem)."""
+    last successful two-view problem, the system, still running, and the
+    sequence: phase 17e goes on from them)."""
     cfg = SLAMConfig(cam=cam, orb=orb_cfg, max_keyframes=64, max_points=16384,
                      local_point_cap=4096, max_frames_between_kf=10, profile_stages=True)
     print(f"[mono] SLAMSystem.track_monocular with SLAMConfig's defaults (pipelined_fetch, "
@@ -2128,7 +2148,6 @@ def drive_mono(cam, orb_cfg):
         fail("mono: the trajectory is not finite")
     ate = ate_rmse(est[first:], gt[first:], with_scale=True)
     kf_ms = d.pop("inline_mapping_ms")
-    system.shutdown()
     print(f"  initialized at frame {first} by {init['model']} ({init['solves']} two-view "
           f"solves, {init['n_good']} good points); frames tracked {d['tracked']}/"
           f"{N_FRAMES_MONO}, lost after initialization {d['lost_after_init']}; keyframes "
@@ -2136,8 +2155,8 @@ def drive_mono(cam, orb_cfg):
           f"alignment; ms per frame after initialization median {d['median_ms']:.2f}, p95 "
           f"{d['p95_ms']:.2f}; inline mapping on the tracker's thread {len(kf_ms)} keyframes, "
           f"median {np.median(kf_ms) if kf_ms else float('nan'):.1f} ms; frames dispatched "
-          f"again {d['redispatched']}, rebuilt {d['rebuilt']}; kernel launches "
-          f"{d['launches']}", flush=True)
+          f"again {d['redispatched']}, rebuilt {d['rebuilt']}; ids remapped to the point they "
+          f"were merged into {d['remapped_ids']}; kernel launches {d['launches']}", flush=True)
     print(tracker.stats.report(), flush=True)
     print("  mapper stages (per keyframe, inline on the tracker's thread):", flush=True)
     print(system.local_mapper.stats.report(), flush=True)
@@ -2151,7 +2170,7 @@ def drive_mono(cam, orb_cfg):
         fail(f"mono: ATE {ate:.4f} m, limit {MONO_ATE_MAX_M}")
     ok = [args for args, res in inits.calls if bool(res.success)]
     return dict(d, ate_sim3_m=ate, init=init, inline_mapping_ms_median=float(np.median(kf_ms))
-                if kf_ms else None, inline_mapping_keyframes=len(kf_ms)), ok[-1]
+                if kf_ms else None, inline_mapping_keyframes=len(kf_ms)), ok[-1], system, seq
 
 
 def check_two_view_card_vs_cpu(args) -> dict:
@@ -2221,13 +2240,15 @@ def drive_mono_loop(cam, orb_cfg, voc):
     tracker = system.tracker
     seq = SyntheticSequence(cam, n_frames=N_FRAMES_MONO_LOOP, trajectory="circuit3", seed=9,
                             world="room", exposure=0.35)
-    pre = [None]
+    pre, loop_at = [None], [None]
 
     def after(i):
         if not system.wait_mapping_idle(timeout=60.0):
             fail(f"mono loop: the worker did not become idle after frame {i}")
         if closer.n_loops_closed == 0 and i % 10 == 9:
             pre[0] = tracker.full_trajectory_twc(wait=False)
+        if closer.n_loops_closed and loop_at[0] is None:
+            loop_at[0] = i
 
     d = mono_drive("mono loop", system, seq, N_FRAMES_MONO_LOOP, after)
     system.wait_mapping_idle(300)
@@ -2236,7 +2257,10 @@ def drive_mono_loop(cam, orb_cfg, voc):
     post = tracker.full_trajectory_twc()
     gt = np.stack([np.linalg.inv(p) for p in seq.poses])
     loops = closer.n_loops_closed
+    lost_after_loop = [f for f in d["lost_after_init"]
+                       if loop_at[0] is not None and f > loop_at[0]]
     out = dict(d, loops=loops, fix_scale=bool(closer.cfg.fix_scale),
+               loop_closed_by_frame=loop_at[0], lost_after_loop=lost_after_loop,
                inline_mapping_ms_median=float(np.median(kf_ms)) if kf_ms else None,
                loop_stage_median_ms={k: v["median_ms"]
                                      for k, v in closer.stats.summary().items()})
@@ -2262,7 +2286,11 @@ def drive_mono_loop(cam, orb_cfg, voc):
           f"median {d['median_ms']:.2f}, p95 {d['p95_ms']:.2f} (the worker's wait "
           f"excluded); inline mapping median {out['inline_mapping_ms_median']:.1f} ms over "
           f"{len(kf_ms)} keyframes; frames dispatched again {d['redispatched']}, rebuilt "
-          f"{d['rebuilt']}; kernel launches {d['launches']}", flush=True)
+          f"{d['rebuilt']}; kernel launches {d['launches']}; the loop closed by frame "
+          f"{loop_at[0]}, frames lost after it {lost_after_loop}, lost after initialization "
+          f"{d['lost_after_init']}; ids remapped to the point they were merged into "
+          f"{d['remapped_ids']} (frames whose associations changed while in flight "
+          f"{d['revalidated_frames']})", flush=True)
     print("  loop closer stages:", flush=True)
     print(closer.stats.report(), flush=True)
     if not full_scale <= pre_scale + 1e-3:
@@ -2322,6 +2350,170 @@ def check_mono_relocalization(system, seq, first_ok) -> dict:
     return dict(frame=revisit, rotation_err=r_err, translation_err=t_err,
                 epnp_runs=len(calls), epnp_inliers=calls, inliers=tracker.matches_inliers,
                 ms=ms, launches=launches)
+
+
+# ---- phase 17e: replaced points in the last frame ---------------------------
+# the frame after 17a's last tracked with half of that frame's points merged
+# into duplicates, against the same frame without the merge: the same
+# arithmetic on the same values, so the poses agree to float32 noise
+REPLACED_POSE_TOL_M = 1e-5
+# a tracker's collaborators, which copy_tracker's copy goes without, and what
+# the copy shares with it
+_TRACKER_COLLABORATORS = ("mapping_worker", "local_mapper", "loop_closer", "kfdb",
+                          "vocabulary", "applied_pose_cb")
+_TRACKER_SHARED = ("cfg", "cam", "device", "extractor", "stats")
+
+
+def copy_tracker(tracker: Tracker) -> Tracker:
+    """A copy of `tracker`, its frames in flight applied first: a deep copy of
+    its map and per-frame state (the device carry and mirrors included), no
+    mapper, worker, loop closer or keyframe database, and its settings,
+    extractor and stage timer shared. A frame tracked on the copy leaves the
+    tracker as it was."""
+    tracker.flush_frames()
+    out = copy.copy(tracker)
+    memo = {}
+    for name, value in vars(tracker).items():
+        if name in _TRACKER_COLLABORATORS:
+            setattr(out, name, None)
+        elif name == "map_lock":
+            out.map_lock = threading.RLock()
+        elif name not in _TRACKER_SHARED:
+            setattr(out, name, copy.deepcopy(value, memo))
+    return out
+
+
+def duplicate_half(tracker: Tracker, replace: bool):
+    """A duplicate (add_point with the same position, descriptor, normal and
+    scale band) of every other point the last frame tracked that is still in
+    the map and, with `replace`, each replaced by its duplicate
+    (replace_points) under the map lock. -> (old ids, duplicate ids, the last
+    frame's slots holding an old id, its slots holding a live point)."""
+    m, ids = tracker.map, tracker.last_frame.pt_ids
+    live = np.flatnonzero((ids >= 0) & m.pt_valid[np.maximum(ids, 0)])
+    old = np.unique(ids[live[::2]])
+    with tracker.map_lock:
+        dup = np.array([m.add_point(
+            m.pt_pos[p].copy(), m.pt_desc[p].copy(), int(m.pt_ref_kf[p]),
+            int(m.pt_first_frame[p]), normal=m.pt_normal[p].copy(),
+            min_dist=float(m.pt_min_dist[p]), max_dist=float(m.pt_max_dist[p]))
+            for p in old], np.int64)
+        if replace:
+            m.replace_points(list(zip(old.tolist(), dup.tolist())))
+    return old, dup, np.flatnonzero(np.isin(ids, old)), len(live)
+
+
+def track_watched(name, tracker: Tracker, track):
+    """`track()` one frame on `tracker`'s fused path and apply it. -> (the
+    fused apply's motion-model matches and inliers, final inliers and pose;
+    the last frame's ids the fused step was given; the device carry right
+    after the dispatch)."""
+    got, staged = {}, {}
+    apply_, step = tracker._fused_apply, tracking_mod.kernels.fused_frame_step
+
+    def spy_apply(rec, fetched):
+        got.update(mm_matches=int(fetched[4]), mm_inliers=int(fetched[5]),
+                   inliers=int(fetched[6]), tcw=np.array(fetched[0], np.float64))
+        return apply_(rec, fetched)
+
+    def spy_step(*a):
+        staged["last_pid"] = a[7].cpu().numpy()
+        return step(*a)
+
+    tracker._fused_apply = spy_apply
+    tracking_mod.kernels.fused_frame_step = spy_step
+    try:
+        track()
+        carry = tracker._last_pid_dev
+        tracker.flush_frames()
+    finally:
+        vars(tracker).pop("_fused_apply")
+        tracking_mod.kernels.fused_frame_step = step
+    if not got or "last_pid" not in staged:
+        fail(f"replaced: {name}: the frame did not take the fused path")
+    return got, staged["last_pid"], carry
+
+
+def next_view(seq, n_frames: int) -> np.ndarray:
+    """The frame after the first `n_frames` of `seq`: one more step of the
+    last frame's velocity, rendered in the same world. -> gray image."""
+    view = copy.copy(seq)
+    poses = seq.poses[:n_frames]
+    tcw = poses[-1] @ np.linalg.inv(poses[-2]) @ poses[-1]
+    view.poses = np.concatenate([poses, tcw[None]])
+    return view.render(n_frames)[0]
+
+
+def check_replaced_points(system, seq, n_frames: int) -> dict:
+    """Phase 17e: after 17a's drive, the next frame with half of the points
+    the last frame tracked merged into duplicates before it, through
+    SLAMSystem.track_monocular, against that frame tracked on a copy of the
+    tracker taken before the merge (the same duplicates added, not merged);
+    then a merged point's slot handed out again before the frame, on another
+    copy."""
+    tracker = system.tracker
+    if tracker.trajectory_lost_mask()[-1]:
+        fail("replaced: 17a's last frame was lost")
+    gray, ts = next_view(seq, n_frames), n_frames / seq.fps
+    cuda_orb.fused_orient_describe.launches = 0
+    plain = copy_tracker(tracker)
+    duplicate_half(plain, replace=False)
+    r0 = plain.remapped_ids
+    c0, pid0, _ = track_watched("without the merge", plain, lambda: plain.track_mono(gray, ts))
+
+    reuse = copy_tracker(tracker)
+    m, ids = reuse.map, reuse.last_frame.pt_ids
+    p = int(ids[(ids >= 0) & m.pt_valid[np.maximum(ids, 0)]][0])
+    with reuse.map_lock:
+        d = m.add_point(m.pt_pos[p].copy(), m.pt_desc[p].copy(), int(m.pt_ref_kf[p]), 0)
+        m.replace_points([(p, d)])
+        q = m.add_point(m.pt_pos[p] + 1.0, ~m.pt_desc[p], int(m.pt_ref_kf[p]), 0)
+    slots_p = np.flatnonzero(ids == p)
+    _, pid_r, _ = track_watched("slot handed out again", reuse,
+                                lambda: reuse.track_mono(gray, ts))
+
+    had_carry = tracker._last_pid_dev is not None
+    r1 = tracker.remapped_ids
+    old, dup, slots, n_live = duplicate_half(tracker, replace=True)
+    c1, pid1, carry1 = track_watched("merged", tracker,
+                                     lambda: system.track_monocular(gray, ts))
+    torch.cuda.synchronize()
+    launches = cuda_orb.fused_orient_describe.launches
+    remapped = (tracker.remapped_ids - r1) - (plain.remapped_ids - r0)
+    remap = dict(zip(old.tolist(), dup.tolist()))
+    read_remapped = bool((pid1 == np.array([remap.get(int(x), int(x)) for x in pid0])).all())
+    centre = [-t[:3, :3].T @ t[:3, 3] for t in (c0["tcw"], c1["tcw"])]
+    pose_m = float(np.linalg.norm(centre[0] - centre[1]))
+    same = all(c0[k] == c1[k] for k in ("mm_matches", "mm_inliers", "inliers"))
+    print(f"[replaced] frame {n_frames} after 17a's drive ({geometry(system.cfg.cam, system.cfg.orb)}"
+          f"): {len(old)} of the last frame's {n_live} live points merged into duplicates "
+          f"({len(slots)} slots); motion-model matches {c1['mm_matches']} / inliers "
+          f"{c1['mm_inliers']}, final inliers {c1['inliers']} against {c0['mm_matches']} / "
+          f"{c0['mm_inliers']} / {c0['inliers']} without the merge; camera centres "
+          f"{pose_m:.2e} m apart (limit {REPLACED_POSE_TOL_M}); ids remapped {remapped} "
+          f"(expected {len(slots)}); device carry {'held' if had_carry else 'absent'} "
+          f"before, {'dropped' if carry1 is None else 'KEPT'} at the dispatch, the step "
+          f"given the remapped ids: {read_remapped}; a merged point's slot {p} handed out "
+          f"again ({'the same slot' if q == p else f'slot {q}'}): its {len(slots_p)} "
+          f"last-frame slot(s) staged as {pid_r[slots_p].tolist()}; kernel launches "
+          f"{launches} for 3 frames", flush=True)
+    if not same:
+        fail("replaced: the merged run's matches or inliers differ from the run without it")
+    if not pose_m <= REPLACED_POSE_TOL_M:
+        fail(f"replaced: the poses are {pose_m:.2e} m apart")
+    if remapped != len(slots) or not 2 * len(slots) >= n_live:
+        fail(f"replaced: {remapped} ids remapped, expected {len(slots)} (half of {n_live})")
+    if carry1 is not None or not read_remapped:
+        fail("replaced: the fused step did not read the remapped ids from the host")
+    if q != p or not (pid_r[slots_p] == -1).all():
+        fail("replaced: a slot handed out again was given to the step as the last frame's")
+    if launches != 3:
+        fail(f"replaced: {launches} kernel launches for 3 frames")
+    return dict(frame=n_frames, live_points=n_live, merged=len(old), slots=len(slots),
+                remapped_ids=remapped, pose_diff_m=pose_m, merged_run=c1 | {"tcw": None},
+                plain_run=c0 | {"tcw": None}, carry_dropped=carry1 is None,
+                had_carry=had_carry, reused_slot_staged=pid_r[slots_p].tolist(),
+                launches=launches)
 
 
 # ---- phase 18: the dataset drivers ------------------------------------------
@@ -3092,11 +3284,13 @@ def main() -> None:
     gba = check_global_ba(defaults_system, seq)
     backlog = drive_backlog(cam, orb_cfg, frames, seq, place_system.vocabulary)
     # ---- phase 17: monocular ----------------------------------------------
-    mono, two_view_args = drive_mono(cam, orb_cfg)
+    mono, two_view_args, mono_a_system, mono_a_seq = drive_mono(cam, orb_cfg)
     two_view = check_two_view_card_vs_cpu(two_view_args)
     mono_loop, mono_system, mono_seq = drive_mono_loop(cam, orb_cfg, place_system.vocabulary)
     mono_reloc = check_mono_relocalization(mono_system, mono_seq, mono_loop["first_ok"])
     mono_system.shutdown()
+    replaced = check_replaced_points(mono_a_system, mono_a_seq, N_FRAMES_MONO)
+    mono_a_system.shutdown()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # ---- phase 18: the dataset drivers --------------------------------
         drivers, tum_argv = drive_drivers(cam, orb_cfg, seq, frames, stereo_seq,
@@ -3129,6 +3323,7 @@ def main() -> None:
                              "backlog": backlog["launches"],
                              "mono": mono["launches"], "mono_loop": mono_loop["launches"],
                              "mono_relocalization": mono_reloc["launches"],
+                             "mono_replaced_points": replaced["launches"],
                              "stereo_kitti": stereo_kitti["launches"],
                              "slam_system_with_mapping_worker": main_path["launches"],
                              "tracker_without_mapper": tracker_alone["launches"],
@@ -3158,6 +3353,7 @@ def main() -> None:
         "localization": localization, "map_reload": reload, "global_ba": gba,
         "backlog": backlog, "mono": mono, "two_view_card_vs_cpu": two_view,
         "mono_loop": mono_loop, "mono_relocalization": mono_reloc,
+        "replaced_points": replaced,
         "drivers": drivers, "distributed_gba": gba_parallel, "multi_session": multi,
         "periphery": periphery, "driver_viewer": driver_viewer}]}), flush=True)
     print(smi_line, flush=True)

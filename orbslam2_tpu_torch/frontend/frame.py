@@ -42,6 +42,9 @@ class Frame:
     tcw: np.ndarray          # [4, 4] float32 pose estimate (world->cam)
     pt_ids: np.ndarray       # [N] int32 map-point id per keypoint (-1 = none)
     is_outlier: np.ndarray   # [N] bool pose-opt outlier flag
+    # the map's point counter when pt_ids were last set: the snapshot
+    # MapState.resolve_replaced brings them up to date from
+    pt_stamp: int = 0
     _host: Optional[HostKeypoints] = None
     _host_depth: Optional[tuple] = None
 

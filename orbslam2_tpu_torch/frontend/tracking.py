@@ -38,6 +38,15 @@ returned for a frame in flight composes the velocity once for every frame
 between the last applied frame and this one, not once; and a frame that
 fails after chaining across a keyframe it did not see is dispatched again
 (`_apply_one`).
+
+Two more divergences repair faults of the JAX package, toward ORB-SLAM2's
+behaviour (tests/test_torch_map_repairs.py, tests/test_torch_mono.py and
+tests/test_torch_localization.py): the last frame's ids and the local
+selection are brought up to date with the map's merged points before each
+frame (`_check_replaced`, Tracking::CheckReplacedInLastFrame), and a fused
+frame's on apply, where the JAX package drops them; and no temporal point
+reaches the local-map stage of a frame whose associations a relocalization
+supplied.
 """
 from __future__ import annotations
 
@@ -182,6 +191,7 @@ class Tracker:
         self._local_ids: Optional[np.ndarray] = None   # [cap] int32 padded
         self._local_sel: Optional[np.ndarray] = None   # [cap] bool
         self._local_pts: Optional[np.ndarray] = None   # [n_local] int64
+        self._local_stamp = 0  # the map's point counter at the selection
         self._selection_fresh = False  # set when a classic-path frame just
         # computed the selection (skip the end-of-frame recompute)
         self._last_pid_dev: Optional[torch.Tensor] = None  # device [N]
@@ -202,9 +212,13 @@ class Tracker:
         self.map_lock = threading.RLock()
         self.mapping_worker = None
         self.stats = StageTimer(enabled=config.profile_stages)
-        # fused frames that dropped associations to points the mapper erased
-        # or re-allocated while the frame's device step ran (read by drives)
+        # fused frames whose associations the mapper changed while the
+        # frame's device step ran: merged points remapped, erased or
+        # re-allocated ones dropped (read by drives)
         self.revalidated_frames = 0
+        # associations remapped to the point they were merged into, in the
+        # last frame before a frame and in a fused frame on apply
+        self.remapped_ids = 0
         # frames built again because a pose correction (loop closure, global
         # BA) rebased the map while their fused step was in flight: each is
         # one more extraction (read by drives)
@@ -286,6 +300,7 @@ class Tracker:
             if ok:
                 self.state = TrackingState.OK
             self._record_trajectory(fr, lost=not ok)
+            fr.pt_stamp = self.map._pt_counter
             self.last_frame = fr
             return fr.tcw.copy() if ok else None
 
@@ -301,6 +316,10 @@ class Tracker:
                     if not ok:
                         ok = self._track_reference_keyframe(fr)
         else:
+            # the relocalization supplies this frame's associations: no
+            # temporal point of the last tracked frame may reach them
+            self._vo_mask = self._vo_pos = None
+            self._aux_mask = self._aux_pos = None
             with self.stats.stage("relocalize"):
                 ok = self._relocalize(fr)
 
@@ -317,6 +336,7 @@ class Tracker:
                       ) -> Optional[np.ndarray]:
         """Shared frame epilogue: state/velocity update, keyframe decision,
         loss handling, trajectory bookkeeping."""
+        fr.pt_stamp = self.map._pt_counter
         mapping = not self.cfg.localization_only
         if ok:
             self.state = TrackingState.OK
@@ -372,6 +392,7 @@ class Tracker:
         frame's associations (evaluated one frame early — covisibility
         changes per keyframe event, not per frame)."""
         self._local_ids, self._local_sel, self._local_pts = self._select_local(fr)
+        self._local_stamp = self.map._pt_counter
 
     def _track_fused(self, kind: str, imgs, timestamp: float
                      ) -> Optional[np.ndarray]:
@@ -682,12 +703,12 @@ class Tracker:
             return self._finish_frame(fr, ok)
 
         m = self.map
-        pid = np.asarray(pid_h, np.int32).copy()
-        has = pid >= 0
-        safe = np.clip(pid, 0, m.cap.max_points - 1)
-        stale = has & (~m.pt_valid[safe] | (m.pt_stamp[safe] >= stamp_snap))
-        pid[stale] = -1
-        self.revalidated_frames += bool(stale.any())
+        pid_h = np.asarray(pid_h, np.int32)
+        pid = m.resolve_replaced(pid_h, stamp_snap)
+        changed = pid != pid_h
+        stale = changed & (pid < 0)
+        self.revalidated_frames += bool(changed.any())
+        self.remapped_ids += int((changed & ~stale).sum())
         fr.pt_ids = pid
         fr.is_outlier = np.asarray(outl_h).copy()
         fr.is_outlier[stale] = False
@@ -705,8 +726,8 @@ class Tracker:
             m.increase_found(fr.pt_ids[fr.pt_ids >= 0])
             # the device carry (and a frame chained off this one) holds the
             # stale ids too
-            self._last_pid_dev = None if stale.any() else out.pt_ids
-            self._carry_wrong = self._carry_wrong or bool(stale.any())
+            self._last_pid_dev = None if changed.any() else out.pt_ids
+            self._carry_wrong = self._carry_wrong or bool(changed.any())
         else:
             self._last_pid_dev = None
         return self._finish_frame(fr, ok)
@@ -835,11 +856,16 @@ class Tracker:
         """Refresh last frame's pose from its reference keyframe and, in
         localization mode, make temporal visual-odometry points of its
         unmatched keypoints with depth: every close one, at least the 100
-        nearest (Tracking::UpdateLastFrame)."""
+        nearest (Tracking::UpdateLastFrame). First the associations of the
+        last frame and of the local selection made with it are brought up to
+        date with the map (Tracking::CheckReplacedInLastFrame): a point merged
+        into another since becomes that point, an erased or re-allocated one
+        is dropped, and a merged or re-allocated id drops the device carry."""
         self._vo_mask = self._vo_pos = None
         self._aux_mask = self._aux_pos = None
         if not self.trajectory:
             return
+        self._check_replaced()
         entry = self.trajectory[-1]
         if entry.ref_kf >= 0 and self.map.kf_valid[entry.ref_kf]:
             self.last_frame.tcw = entry.tcr @ self.map.kf_pose[entry.ref_kf]
@@ -859,6 +885,41 @@ class Tracker:
         self._vo_mask[take] = True
         self._vo_pos = np.zeros((last.n, 3), np.float32)
         self._vo_pos[take] = pw
+
+    def _check_replaced(self) -> None:
+        """Remap the last frame's ids and the local selection through
+        MapState.resolve_replaced (called from _update_last_frame)."""
+        m, last = self.map, self.last_frame
+        ids = m.resolve_replaced(last.pt_ids, last.pt_stamp)
+        changed = ids != last.pt_ids
+        if changed.any():
+            remapped = changed & (ids >= 0)
+            self.remapped_ids += int(remapped.sum())
+            # the device step reads an erased id as no point, but a merged
+            # or re-allocated one as a point: the carry goes for those
+            if (remapped | (changed & m.pt_valid[np.maximum(last.pt_ids, 0)])).any():
+                self._last_pid_dev = None
+            last.pt_ids = ids
+        last.pt_stamp = m._pt_counter
+        if self._local_pts is not None and len(self._local_pts):
+            n = len(self._local_pts)
+            sel_ids = m.resolve_replaced(self._local_pts, self._local_stamp)
+            moved = np.flatnonzero(sel_ids != self._local_pts)
+            if len(moved):
+                ids_pad, sel = self._local_ids.copy(), self._local_sel.copy()
+                pts = self._local_pts.copy()
+                sel[moved] = False
+                # a merged point takes its victim's place in the candidate
+                # order, unless the list holds it already
+                present = set(pts[sel[:n]].tolist())
+                for i in moved:
+                    t = int(sel_ids[i])
+                    if t >= 0 and t not in present:
+                        pts[i] = ids_pad[i] = t
+                        sel[i] = True
+                        present.add(t)
+                self._local_ids, self._local_sel, self._local_pts = ids_pad, sel, pts
+        self._local_stamp = m._pt_counter
 
     # ------------------------------------------------------------------
     # localization mode (Tracking::Track with mbOnlyTracking): with enough
@@ -886,6 +947,9 @@ class Tracker:
                 self.map.increase_found(fr.pt_ids[(fr.pt_ids >= 0) & ~fr.is_outlier])
         elif ok_reloc:
             self.mb_vo = False   # map tracking restored
+            # the relocalization's associations replace the motion model's,
+            # its temporal matches included (vpMPsMM is dropped)
+            self._aux_mask = self._aux_pos = None
         return ok_reloc or ok_mm
 
     # ------------------------------------------------------------------
@@ -1118,6 +1182,7 @@ class Tracker:
         sel_ids, sel_all, pt_ids = self._select_local(fr)
         self._local_ids, self._local_sel, self._local_pts = \
             sel_ids, sel_all, pt_ids
+        self._local_stamp = self.map._pt_counter
         self._selection_fresh = True
         n_local = len(pt_ids)
         # don't re-match points already associated by motion-model tracking
@@ -1325,6 +1390,7 @@ class Tracker:
                 self.map.kf_pt[kf, take] = new_pts
                 self.map.touch_obs()
                 fr.pt_ids[take] = new_pts
+                fr.pt_stamp = self.map._pt_counter
                 # the device-side carry no longer matches fr.pt_ids
                 self._last_pid_dev = None
                 self.map.update_point_descriptor_and_normal(

@@ -85,6 +85,12 @@ class MapState:
         # async consumers of point snapshots, e.g. the background GBA)
         self.pt_stamp = np.full(p, -1, np.int64)
         self._pt_counter = 0
+        # replacement table (MapPoint::mpReplaced): the point a replaced slot
+        # was merged into, and that point's stamp at the time, so that a
+        # chain through a slot handed out again since is seen as broken;
+        # -1 for a live slot and for one erased without a replacement
+        self.pt_replaced = np.full(p, -1, np.int32)
+        self.pt_replaced_stamp = np.full(p, -1, np.int64)
 
         self._kf_free: List[int] = list(range(k - 1, -1, -1))
         self._pt_free: List[int] = list(range(p - 1, -1, -1))
@@ -213,6 +219,7 @@ class MapState:
         self.pt_found[p] = 1
         self.pt_first_frame[p] = frame_id
         self.pt_stamp[p] = self._pt_counter
+        self.pt_replaced[p] = -1
         self._pt_counter += 1
         self.mark_pts_dirty((p,))
         return p
@@ -245,6 +252,7 @@ class MapState:
         self.pt_first_frame[pids] = frame_id
         self.pt_stamp[pids] = np.arange(self._pt_counter,
                                         self._pt_counter + m)
+        self.pt_replaced[pids] = -1
         self._pt_counter += m
         self.mark_pts_dirty(pids)
         return pids
@@ -435,10 +443,42 @@ class MapState:
         # found/visible accumulate along the chains
         np.add.at(self.pt_found, targets, self.pt_found[victims])
         np.add.at(self.pt_visible, targets, self.pt_visible[victims])
+        self.pt_replaced[victims] = targets
+        self.pt_replaced_stamp[victims] = self.pt_stamp[targets]
         self.pt_valid[victims] = False
         self._pt_free.extend(int(v) for v in victims)
         self.obs_gen = next(_DIRTY_GEN)
         self.mark_pts_dirty(victims)
+
+    def resolve_replaced(self, ids: np.ndarray, stamp_snap: int) -> np.ndarray:
+        """Point ids taken when the map's point counter stood at `stamp_snap`,
+        as they stand now (Tracking::CheckReplacedInLastFrame): an id whose
+        slot is valid and older than the snapshot stays; a slot freed since
+        is followed through the replacement table to the valid point it was
+        merged into; an id erased without a replacement, a slot handed out
+        again after the snapshot, or a chain through such a slot becomes
+        -1. Chains are bounded by the capacity. -> int32 ids, the shape of
+        `ids`."""
+        ids = np.asarray(ids)
+        out = np.full(ids.shape, -1, np.int32)
+        safe = np.clip(ids, 0, self.cap.max_points - 1)
+        old = (ids >= 0) & (self.pt_stamp[safe] < stamp_snap)
+        live = old & self.pt_valid[safe]
+        out[live] = ids[live]
+        at = np.flatnonzero(old & ~live)
+        cur = safe.ravel()[at]
+        flat = out.ravel()
+        for _ in range(self.cap.max_points):
+            if not len(at):
+                break
+            nxt = self.pt_replaced[cur]
+            keep = nxt >= 0
+            keep[keep] = self.pt_stamp[nxt[keep]] == self.pt_replaced_stamp[cur[keep]]
+            at, cur = at[keep], nxt[keep]
+            done = self.pt_valid[cur]
+            flat[at[done]] = cur[done]
+            at, cur = at[~done], cur[~done]
+        return flat.reshape(ids.shape)
 
     def erase_keyframe(self, kf: int) -> None:
         """KeyFrame::SetBadFlag: drop observations; re-parent children to this KF's parent; record

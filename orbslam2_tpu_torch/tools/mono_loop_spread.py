@@ -11,7 +11,8 @@ drive is chaotic: atomic float sums in the card's solves and the order in
 which the worker's loop stage and the tracker take the map lock differ from
 run to run, and a keyframe more or less moves the frame where the loop
 closes. Each run prints the keyframe frame of the loop correction, the
-frames lost after initialization, the scale errors and ATE phase 17c
+frames lost after initialization and after the loop, the ids remapped to
+the point they were merged into, the scale errors and ATE phase 17c
 gates on, and which gates it would fail (a failure is recorded here instead
 of ending the run). The last line is one JSON object. Needs a GPU.
 """
@@ -75,7 +76,9 @@ def main() -> None:
         except GateFailed:
             d = {}
         row = dict(run=k, loop_keyframe_frames=list(loop_frames),
-                   lost_after_init=d.get("lost_after_init"), keyframes=d.get("keyframes"),
+                   lost_after_init=d.get("lost_after_init"),
+                   lost_after_loop=d.get("lost_after_loop"),
+                   remapped_ids=d.get("remapped_ids"), keyframes=d.get("keyframes"),
                    pre_frames=d.get("pre_frames"), pre_scale=d.get("pre_scale"),
                    window_scale=d.get("window_scale"), full_scale=d.get("full_scale"),
                    ate_sim3_m=d.get("ate_sim3_m"), gates_failed=list(failed),

@@ -54,7 +54,7 @@ from orbslam2_tpu_torch.slammap import covisibility as tcovis
 from orbslam2_tpu_torch.solvers import horn, initializer as tinit
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-from torch_port_helpers import j, jax_keypoints, jax_sample_sets, n, t
+from torch_port_helpers import fork_tracker, j, jax_keypoints, jax_sample_sets, n, t
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 JCAM, TCAM = JCamera(**CAM_KW), TCamera(**CAM_KW)
@@ -410,3 +410,117 @@ def test_fused_mono_step_matches_jax(runs):
     assert (n(out_t.pt_ids) == n(out_j.pt_ids)).mean() >= 0.98
     gap = np.linalg.norm(n(jse3.log(j(n(out_t.tcw)) @ jse3.inverse(out_j.tcw))))
     assert gap < 1e-3
+
+
+def _duplicates(replace):
+    """chip_smoke.py phase 17e's change to the map, for _track_frame: a
+    duplicate (same position, descriptor, normal and scale band) of every
+    other point the last frame tracked that is still in the map and, with
+    `replace`, each old point replaced by its duplicate under the map lock.
+    The run without the replacement adds the same duplicates, so that both
+    runs hand out the same free slots. -> prepare(tracker) -> (old ids,
+    duplicate ids, the last frame's slots holding an old id)."""
+    def prepare(tracker):
+        m, ids = tracker.map, tracker.last_frame.pt_ids
+        live = np.flatnonzero((ids >= 0) & m.pt_valid[np.maximum(ids, 0)])
+        old = np.unique(ids[live[::2]])
+        with tracker.map_lock:
+            dup = np.array([m.add_point(
+                m.pt_pos[p].copy(), m.pt_desc[p].copy(), int(m.pt_ref_kf[p]),
+                int(m.pt_first_frame[p]), normal=m.pt_normal[p].copy(),
+                min_dist=float(m.pt_min_dist[p]), max_dist=float(m.pt_max_dist[p]))
+                for p in old])
+            if replace:
+                m.replace_points(list(zip(old.tolist(), dup.tolist())))
+        return old, dup, np.flatnonzero(np.isin(ids, old))
+    return prepare
+
+
+def _track_frame(tracker, gray, prepare=None):
+    """On a fork of `tracker`: `prepare(fork)`, then one frame through
+    track_mono, applied. -> (the fork, the fused apply's motion-model
+    matches and inliers and final inliers, the fused step's last-frame ids,
+    the device carry right after the dispatch, what `prepare` returned)."""
+    fork = fork_tracker(tracker)
+    assert fork.state.name == "OK" and fork.velocity is not None
+    out = prepare(fork) if prepare else None
+    counts, staged = {}, {}
+    apply_ = fork._fused_apply
+    mod = jk if type(fork) is jtracking.Tracker else tk
+    step = mod.fused_frame_step
+
+    def spy_apply(rec, fetched):
+        counts.update(mm=int(fetched[4]), mm_in=int(fetched[5]), n_in=int(fetched[6]))
+        return apply_(rec, fetched)
+
+    def spy_step(*a):
+        staged["last_pid"] = n(a[7]).copy()
+        return step(*a)
+    fork._fused_apply = spy_apply
+    mod.fused_frame_step = spy_step
+    try:
+        fork.track_mono(gray, N_FRAMES / 30.0)
+        carry = fork._last_pid_dev
+        fork.flush_frames()
+    finally:
+        mod.fused_frame_step = step
+    assert counts, "the frame did not take the fused path"
+    return fork, counts, staged["last_pid"], carry, out
+
+
+def test_replaced_points_in_the_last_frame_are_remapped(runs):
+    """chip_smoke.py phase 17e at 320x240 on the drive's last frame: half of
+    the points it tracked merged into duplicates before the next frame.
+    The port (Tracking::CheckReplacedInLastFrame) tracks that frame as
+    without the merge, the device carry set aside for the remapped ids; the
+    JAX package, without the lookup, loses the merged points' motion-model
+    matches."""
+    gray = runs["frames"][N_FRAMES]
+    tr, jtr = runs["system"].tracker, runs["jsys"].tracker
+    base, c0, pid0, _, _ = _track_frame(tr, gray, _duplicates(False))
+    rep, c1, pid1, carry1, (old, dup, slots) = _track_frame(tr, gray, _duplicates(True))
+    ids = tr.last_frame.pt_ids
+    assert len(slots) * 2 >= ((ids >= 0) & tr.map.pt_valid[np.maximum(ids, 0)]).sum() - 1
+    assert len(old) > 30
+    assert rep.remapped_ids - base.remapped_ids == len(slots)
+    remap = dict(zip(old.tolist(), dup.tolist()))
+    # the step read the host's remapped ids, not the device carry
+    assert carry1 is None
+    np.testing.assert_array_equal(pid1, [remap.get(int(p), int(p)) for p in pid0])
+    assert c1 == c0 and c0["mm"] > 100
+    np.testing.assert_allclose(rep.last_frame.tcw, base.last_frame.tcw, atol=1e-5)
+    np.testing.assert_array_equal(
+        rep.last_frame.pt_ids, [remap.get(int(p), int(p)) for p in base.last_frame.pt_ids])
+    # the JAX package: the merged points are invalid to its motion model
+    _, j0, _, _, _ = _track_frame(jtr, gray, _duplicates(False))
+    _, j1, jpid1, _, (jold, _, jslots) = _track_frame(jtr, gray, _duplicates(True))
+    assert np.isin(jpid1[jslots], jold).all()
+    print(f"motion-model matches: port {c0['mm']} -> {c1['mm']}, JAX {j0['mm']} -> "
+          f"{j1['mm']} with {len(jslots)} of the last frame's points merged")
+    assert j1["mm"] < j0["mm"] - len(jslots) // 2
+
+
+def test_a_slot_handed_out_again_is_not_the_last_frames_point(runs):
+    """A point the last frame tracked is merged and its slot handed out
+    again to a new point before the next frame: the port drops the id (its
+    replacement is no longer known); the JAX package stages the new,
+    unrelated point as the last frame's."""
+    gray = runs["frames"][N_FRAMES]
+
+    def reuse(fork):
+        m, ids = fork.map, fork.last_frame.pt_ids
+        p = int(ids[ids >= 0][0])
+        with fork.map_lock:
+            d = m.add_point(m.pt_pos[p].copy(), m.pt_desc[p].copy(), int(m.pt_ref_kf[p]), 0)
+            m.replace_points([(p, d)])
+            q = m.add_point(m.pt_pos[p] + 1.0, ~m.pt_desc[p], int(m.pt_ref_kf[p]), 0)
+        assert q == p                      # the slot free list hands it out first
+        return p, np.flatnonzero(ids == p)
+
+    for system, pkg in ((runs["system"], "torch"), (runs["jsys"], "jax")):
+        fork, _, pid, _, (p, slots) = _track_frame(system.tracker, gray, reuse)
+        if pkg == "torch":
+            assert (pid[slots] == -1).all()
+            assert p not in fork.last_frame.pt_ids
+        else:
+            assert (pid[slots] == p).all()

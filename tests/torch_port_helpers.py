@@ -3,6 +3,8 @@ inputs go through a JAX function of orbslam2_tpu and its PyTorch counterpart
 in orbslam2_tpu_torch (device "cpu"), and the outputs are compared as numpy
 arrays."""
 import concurrent.futures
+import copy
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -119,3 +121,53 @@ def beside(first, second):
         a = pool.submit(first)
         b = second()
         return a.result(), b
+
+
+def without_replacement_lookup(system):
+    """Switch off the port's repair of replaced points on one system, for a
+    parity test whose JAX drive the repair moves: the last frame's ids and
+    the local selection stay as they are before each frame, and a fused
+    frame's ids are kept on apply if their slot is valid and older than the
+    frame's dispatch, else dropped, as before ``MapState.resolve_replaced``
+    (and as the JAX package does). Patches this system's instances only.
+    -> the system."""
+    m = system.map
+
+    def no_table(ids, stamp_snap):
+        ids = np.asarray(ids)
+        safe = np.clip(ids, 0, m.cap.max_points - 1)
+        keep = (ids >= 0) & m.pt_valid[safe] & (m.pt_stamp[safe] < stamp_snap)
+        return np.where(keep, ids, -1).astype(np.int32)
+
+    m.resolve_replaced = no_table
+    system.tracker._check_replaced = lambda: None
+    return system
+
+
+# a tracker's collaborators, which a fork of it goes without
+_COLLABORATORS = ("mapping_worker", "local_mapper", "loop_closer", "kfdb",
+                  "vocabulary", "applied_pose_cb")
+# what a fork shares with its tracker: settings, the extractor and its
+# compiled programs, the fetch pool, the stage timer
+_SHARED = ("cfg", "cam", "device", "extractor", "_extract_jit", "_fetch_pool", "stats")
+
+
+def fork_tracker(tracker):
+    """A copy of a Tracker of either package, with the frames in flight
+    applied first: a deep copy of its map and of its per-frame state, and
+    no mapper, worker, loop closer or keyframe database; a method a test
+    wrapped on the tracker's instance is the class's own again on the fork.
+    Tracking frames on the fork leaves the tracker as it was."""
+    tracker.flush_frames()
+    fork = copy.copy(tracker)
+    memo = {}
+    for name, value in vars(tracker).items():
+        if callable(value) and hasattr(type(tracker), name):
+            delattr(fork, name)
+        elif name in _COLLABORATORS:
+            setattr(fork, name, None)
+        elif name == "map_lock":
+            fork.map_lock = threading.RLock()
+        elif name not in _SHARED:
+            setattr(fork, name, copy.deepcopy(value, memo))
+    return fork
