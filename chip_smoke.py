@@ -36,7 +36,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             read). Tracked frames, keyframes created and culled, live
             points, points triangulated, observations fused, points merged,
             local BAs applied, skipped and dropped, stage conflicts, ATE, ms
-            per frame, the mapper's stage times and the kernel's launch count
+            per frame, the mapper's stage times and the kernel's launch count,
+            and the ids remapped to the point they were merged into, with
+            those found through a slot handed out again since
+            (reused_slot_ids) and those lost to a slot handed out twice
+            (replacements_lost), read and not gated, as in phases 12, 14
+            and 17
 6. ba       the last local-BA problem that drive's mapper solved, solved
             again on the card and on the CPU in float64, as the mapper
             stages it: largest pose and point differences and the share of
@@ -149,8 +154,9 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             pre-loop window's grows at most 1.5 times and the Sim3 ATE is
             under 0.30 m; prints the frame by which the loop closed, the
             frames lost after it and the ids remapped to the point they were
-            merged into. 17d: that tracker set LOST without a motion model
-            relocalizes on frame first+2 through the keyframe database
+            merged into (with reused_slot_ids and replacements_lost). 17d:
+            that tracker set LOST without a motion model relocalizes on
+            frame first+2 through the keyframe database
             (EPnP runs), within 0.1 in rotation and 0.15 in translation of
             the map's own estimate. 17e: replaced points in the last frame
             (Tracking::CheckReplacedInLastFrame): after 17a's drive, half of
@@ -164,8 +170,10 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             ids remapped exactly the merged points' slots (half the frame's
             tracked points), the device carry dropped with the step given
             the remapped ids, a merged point's slot handed out again before
-            the frame (on another copy) not given as the last frame's point,
-            and the kernel launched once per frame
+            the frame (on another copy) given to the step as its replacement,
+            with reused_slot_ids up by the ids that held it (the last frame's
+            and the local selection's) and replacements_lost unchanged, and
+            the kernel launched once per frame
 
 18. drivers the dataset drivers (python -m orbslam2_tpu_torch.examples.*) run in
             process with --device cuda and --eval on sequences the port's
@@ -662,7 +670,8 @@ def drive(name, track, tracker, frames, seq, pace=None, pipelined=False) -> dict
                 fused_frames=fused_frames, rebuilt_frames=tracker.rebuilt_frames,
                 retracked_frames=tracker.retracked_frames,
                 revalidated_frames=tracker.revalidated_frames,
-                remapped_ids=tracker.remapped_ids, ms_per_frame=ms_per_frame,
+                remapped_ids=tracker.remapped_ids, reused_slot_ids=tracker.reused_slot_ids,
+                replacements_lost=tracker.replacements_lost, ms_per_frame=ms_per_frame,
                 median_ms=float(np.median(steady)),
                 p95_ms=float(np.percentile(steady, 95)),
                 mhz=clocks.mhz or [float("nan")])
@@ -680,6 +689,13 @@ def check_trajectory(name, tracker, seq, d) -> float:
     return ate_rmse(est[d["first_ok"]:], gt[d["first_ok"]:])
 
 
+def remapped(d) -> str:
+    """A drive's counts of the tracker's replacement lookup, as printed."""
+    return (f"ids remapped to the point they were merged into {d['remapped_ids']} (through a "
+            f"slot handed out again {d['reused_slot_ids']}, lost to a slot handed out twice "
+            f"{d['replacements_lost']})")
+
+
 def describe(name, tracker, d, ate, n_frames) -> None:
     mhz = d["mhz"]
     print(f"  frames tracked {d['tracked']}/{n_frames}, keyframes "
@@ -688,8 +704,7 @@ def describe(name, tracker, d, ate, n_frames) -> None:
           f"(frames {WARM_FRAMES}..{n_frames - 1}, host clock around a synchronised "
           f"loop), median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms; kernel "
           f"launches {d['launches']}, fused frames {d['fused_frames']} ({d['revalidated_frames']} "
-          f"with associations the mapper changed mid-step), ids remapped to the point "
-          f"they were merged into {d['remapped_ids']}; SM clock over "
+          f"with associations the mapper changed mid-step), {remapped(d)}; SM clock over "
           f"the drive min/median/max {min(mhz):.0f}/{np.median(mhz):.0f}/{max(mhz):.0f} "
           f"MHz ({len(mhz)} samples)", flush=True)
     print(tracker.stats.report(), flush=True)
@@ -781,6 +796,8 @@ def drive_mapped(name, cfg, frames, seq, what):
                 mapper_stage_median_ms={k: v["median_ms"] for k, v in summary.items()},
                 local_ba_conflicts=c["conflicts"],
                 fused_frames=d["fused_frames"], revalidated_frames=d["revalidated_frames"],
+                remapped_ids=d["remapped_ids"], reused_slot_ids=d["reused_slot_ids"],
+                replacements_lost=d["replacements_lost"],
                 tracker_stage_median_ms={k: v["median_ms"] for k, v in
                                          tracker.stats.summary().items()}), system, captured.last
 
@@ -1412,7 +1429,7 @@ def drive_stereo_kitti():
           f"median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms; stereo matches per "
           f"frame median {np.median(matches):.0f} (min {min(matches)}, max {max(matches)}); "
           f"kernel launches {d['launches']} for {N_FRAMES_STEREO} frames "
-          f"({d['rebuilt_frames']} rebuilt); kf_covis per keyframe median "
+          f"({d['rebuilt_frames']} rebuilt); {remapped(d)}; kf_covis per keyframe median "
           f"{covis.get('median_ms', float('nan')):.2f} ms, mean "
           f"{covis.get('mean_ms', float('nan')):.2f} ms over {covis.get('n', 0)}; idle "
           f"{wait_s:.2f} s after the last frame; map-graph engine {lib}", flush=True)
@@ -1437,6 +1454,8 @@ def drive_stereo_kitti():
         ms_per_frame=d["ms_per_frame"], median_ms=d["median_ms"], p95_ms=d["p95_ms"],
         stereo_matches_median=float(np.median(matches)),
         kf_covis_ms=covis, idle_after_last_frame_s=wait_s, longest_frame_at_loop=stall,
+        remapped_ids=d["remapped_ids"], reused_slot_ids=d["reused_slot_ids"],
+        replacements_lost=d["replacements_lost"],
         native_library=lib,
         tracker_stage_median_ms={k: v["median_ms"] for k, v in tr_stats.items()},
         mapper_stage_median_ms={k: v["median_ms"] for k, v in ms_stats.items()},
@@ -1658,6 +1677,8 @@ def drive_defaults_rgbd(name, cfg, frames, seq):
                 p95_ms=d["p95_ms"], retracked_frames=d["retracked_frames"],
                 rebuilt_frames=d["rebuilt_frames"], fused_frames=d["fused_frames"],
                 keyframes=int(system.map.n_keyframes()), fetch_wait_ms=waits,
+                remapped_ids=d["remapped_ids"], reused_slot_ids=d["reused_slot_ids"],
+                replacements_lost=d["replacements_lost"],
                 sm_clock_mhz_median=float(np.median(d["mhz"]))), system
 
 
@@ -1687,14 +1708,15 @@ def drive_defaults_stereo(seq, frames):
           f"keyframes {system.map.n_keyframes()}, ATE-RMSE {ate:.4f} m (true scale), "
           f"median {d['median_ms']:.2f} ms, p95 {d['p95_ms']:.2f} ms, {d['ms_per_frame']:.2f} "
           f"ms per steady-state frame; kernel launches {d['launches']} ({d['retracked_frames']} "
-          f"frames tracked again, {d['rebuilt_frames']} built again)", flush=True)
+          f"frames tracked again, {d['rebuilt_frames']} built again); {remapped(d)}", flush=True)
     if d["first_ok"] >= STEREO_INIT_BY:
         fail(f"defaults stereo: tracking started at frame {d['first_ok']}, not before "
              f"{STEREO_INIT_BY}")
     return dict(launches=d["launches"], first_ok=d["first_ok"], tracked=d["tracked"],
                 ate_m=ate, ms_per_frame=d["ms_per_frame"], median_ms=d["median_ms"],
                 p95_ms=d["p95_ms"], retracked_frames=d["retracked_frames"],
-                rebuilt_frames=d["rebuilt_frames"],
+                rebuilt_frames=d["rebuilt_frames"], remapped_ids=d["remapped_ids"],
+                reused_slot_ids=d["reused_slot_ids"], replacements_lost=d["replacements_lost"],
                 keyframes=int(system.map.n_keyframes()))
 
 
@@ -2102,7 +2124,9 @@ def mono_drive(name, system, seq, n_frames, after=None) -> dict:
     return dict(launches=launches, first_ok=first, tracked=int(len(ok_at)),
                 lost_after_init=(np.flatnonzero(lost[first:]) + first).tolist(),
                 redispatched=tracker.retracked_frames, rebuilt=tracker.rebuilt_frames,
-                remapped_ids=tracker.remapped_ids, revalidated_frames=tracker.revalidated_frames,
+                remapped_ids=tracker.remapped_ids, reused_slot_ids=tracker.reused_slot_ids,
+                replacements_lost=tracker.replacements_lost,
+                revalidated_frames=tracker.revalidated_frames,
                 keyframes=int(system.map.n_keyframes()), points=int(system.map.n_points()),
                 median_ms=float(np.median(steady)), p95_ms=float(np.percentile(steady, 95)),
                 inline_mapping_ms=kf_ms, lost=lost)
@@ -2155,8 +2179,8 @@ def drive_mono(cam, orb_cfg):
           f"alignment; ms per frame after initialization median {d['median_ms']:.2f}, p95 "
           f"{d['p95_ms']:.2f}; inline mapping on the tracker's thread {len(kf_ms)} keyframes, "
           f"median {np.median(kf_ms) if kf_ms else float('nan'):.1f} ms; frames dispatched "
-          f"again {d['redispatched']}, rebuilt {d['rebuilt']}; ids remapped to the point they "
-          f"were merged into {d['remapped_ids']}; kernel launches {d['launches']}", flush=True)
+          f"again {d['redispatched']}, rebuilt {d['rebuilt']}; {remapped(d)}; kernel launches "
+          f"{d['launches']}", flush=True)
     print(tracker.stats.report(), flush=True)
     print("  mapper stages (per keyframe, inline on the tracker's thread):", flush=True)
     print(system.local_mapper.stats.report(), flush=True)
@@ -2288,9 +2312,8 @@ def drive_mono_loop(cam, orb_cfg, voc):
           f"{len(kf_ms)} keyframes; frames dispatched again {d['redispatched']}, rebuilt "
           f"{d['rebuilt']}; kernel launches {d['launches']}; the loop closed by frame "
           f"{loop_at[0]}, frames lost after it {lost_after_loop}, lost after initialization "
-          f"{d['lost_after_init']}; ids remapped to the point they were merged into "
-          f"{d['remapped_ids']} (frames whose associations changed while in flight "
-          f"{d['revalidated_frames']})", flush=True)
+          f"{d['lost_after_init']}; {remapped(d)}; frames whose associations changed while "
+          f"in flight {d['revalidated_frames']}", flush=True)
     print("  loop closer stages:", flush=True)
     print(closer.stats.report(), flush=True)
     if not full_scale <= pre_scale + 1e-3:
@@ -2469,8 +2492,13 @@ def check_replaced_points(system, seq, n_frames: int) -> dict:
         m.replace_points([(p, d)])
         q = m.add_point(m.pt_pos[p] + 1.0, ~m.pt_desc[p], int(m.pt_ref_kf[p]), 0)
     slots_p = np.flatnonzero(ids == p)
+    # the ids the lookup finds through the slot's previous life: the last
+    # frame's positions and the local selection's entries holding p
+    in_sel = 0 if reuse._local_pts is None else int((reuse._local_pts == p).sum())
+    u0, l0 = reuse.reused_slot_ids, reuse.replacements_lost
     _, pid_r, _ = track_watched("slot handed out again", reuse,
                                 lambda: reuse.track_mono(gray, ts))
+    reused, lost = reuse.reused_slot_ids - u0, reuse.replacements_lost - l0
 
     had_carry = tracker._last_pid_dev is not None
     r1 = tracker.remapped_ids
@@ -2495,7 +2523,9 @@ def check_replaced_points(system, seq, n_frames: int) -> dict:
           f"before, {'dropped' if carry1 is None else 'KEPT'} at the dispatch, the step "
           f"given the remapped ids: {read_remapped}; a merged point's slot {p} handed out "
           f"again ({'the same slot' if q == p else f'slot {q}'}): its {len(slots_p)} "
-          f"last-frame slot(s) staged as {pid_r[slots_p].tolist()}; kernel launches "
+          f"last-frame slot(s) staged as {pid_r[slots_p].tolist()} (its replacement {d}), "
+          f"ids resolved through the slot's previous life {reused} (expected {len(slots_p)} "
+          f"in the last frame + {in_sel} in the local selection), lost {lost}; kernel launches "
           f"{launches} for 3 frames", flush=True)
     if not same:
         fail("replaced: the merged run's matches or inliers differ from the run without it")
@@ -2505,14 +2535,19 @@ def check_replaced_points(system, seq, n_frames: int) -> dict:
         fail(f"replaced: {remapped} ids remapped, expected {len(slots)} (half of {n_live})")
     if carry1 is not None or not read_remapped:
         fail("replaced: the fused step did not read the remapped ids from the host")
-    if q != p or not (pid_r[slots_p] == -1).all():
-        fail("replaced: a slot handed out again was given to the step as the last frame's")
+    if q != p or not len(slots_p) or not (pid_r[slots_p] == d).all():
+        fail("replaced: a merged point whose slot was handed out again was not given to the "
+             "step as its replacement")
+    if reused != len(slots_p) + in_sel or lost:
+        fail(f"replaced: {reused} ids resolved through a reused slot (expected "
+             f"{len(slots_p) + in_sel}), {lost} lost")
     if launches != 3:
         fail(f"replaced: {launches} kernel launches for 3 frames")
     return dict(frame=n_frames, live_points=n_live, merged=len(old), slots=len(slots),
                 remapped_ids=remapped, pose_diff_m=pose_m, merged_run=c1 | {"tcw": None},
                 plain_run=c0 | {"tcw": None}, carry_dropped=carry1 is None,
                 had_carry=had_carry, reused_slot_staged=pid_r[slots_p].tolist(),
+                reused_slot_replacement=d, reused_slot_ids=reused, replacements_lost=lost,
                 launches=launches)
 
 

@@ -219,6 +219,12 @@ class Tracker:
         # associations remapped to the point they were merged into, in the
         # last frame before a frame and in a fused frame on apply
         self.remapped_ids = 0
+        # of those ids and the local selection's, the ones whose slot was
+        # handed out again before the lookup (resolved through the slot's
+        # previous life), and the ones lost because their slot was handed
+        # out more than once (an upper bound: the life may have been erased)
+        self.reused_slot_ids = 0
+        self.replacements_lost = 0
         # frames built again because a pose correction (loop closure, global
         # BA) rebased the map while their fused step was in flight: each is
         # one more extraction (read by drives)
@@ -704,7 +710,7 @@ class Tracker:
 
         m = self.map
         pid_h = np.asarray(pid_h, np.int32)
-        pid = m.resolve_replaced(pid_h, stamp_snap)
+        pid = self._resolve(pid_h, stamp_snap)
         changed = pid != pid_h
         stale = changed & (pid < 0)
         self.revalidated_frames += bool(changed.any())
@@ -886,11 +892,18 @@ class Tracker:
         self._vo_pos = np.zeros((last.n, 3), np.float32)
         self._vo_pos[take] = pw
 
+    def _resolve(self, ids, stamp_snap) -> np.ndarray:
+        """MapState.resolve_replaced, its counts added to the tracker's."""
+        out, reused, lost = self.map.resolve_replaced(ids, stamp_snap)
+        self.reused_slot_ids += reused
+        self.replacements_lost += lost
+        return out
+
     def _check_replaced(self) -> None:
         """Remap the last frame's ids and the local selection through
         MapState.resolve_replaced (called from _update_last_frame)."""
         m, last = self.map, self.last_frame
-        ids = m.resolve_replaced(last.pt_ids, last.pt_stamp)
+        ids = self._resolve(last.pt_ids, last.pt_stamp)
         changed = ids != last.pt_ids
         if changed.any():
             remapped = changed & (ids >= 0)
@@ -903,7 +916,7 @@ class Tracker:
         last.pt_stamp = m._pt_counter
         if self._local_pts is not None and len(self._local_pts):
             n = len(self._local_pts)
-            sel_ids = m.resolve_replaced(self._local_pts, self._local_stamp)
+            sel_ids = self._resolve(self._local_pts, self._local_stamp)
             moved = np.flatnonzero(sel_ids != self._local_pts)
             if len(moved):
                 ids_pad, sel = self._local_ids.copy(), self._local_sel.copy()

@@ -86,11 +86,18 @@ class MapState:
         self.pt_stamp = np.full(p, -1, np.int64)
         self._pt_counter = 0
         # replacement table (MapPoint::mpReplaced): the point a replaced slot
-        # was merged into, and that point's stamp at the time, so that a
-        # chain through a slot handed out again since is seen as broken;
-        # -1 for a live slot and for one erased without a replacement
+        # was merged into, and that point's stamp at the time, which names
+        # the target's life where its slot was handed out again since; -1
+        # for a live slot and for one erased without a replacement
         self.pt_replaced = np.full(p, -1, np.int32)
         self.pt_replaced_stamp = np.full(p, -1, np.int64)
+        # the slot's previous life, copied when the slot is handed out again
+        # (its stamp, replacement and replacement's stamp), so that a holder
+        # of the old id still finds the point it was merged into; -1 for a
+        # slot never handed out before
+        self.pt_prev_stamp = np.full(p, -1, np.int64)
+        self.pt_prev_replaced = np.full(p, -1, np.int32)
+        self.pt_prev_replaced_stamp = np.full(p, -1, np.int64)
 
         self._kf_free: List[int] = list(range(k - 1, -1, -1))
         self._pt_free: List[int] = list(range(p - 1, -1, -1))
@@ -207,6 +214,7 @@ class MapState:
         if not self._pt_free:
             raise RuntimeError("map point capacity exhausted")
         p = self._pt_free.pop()
+        self._keep_previous_life(p)
         self.pt_valid[p] = True
         self.pt_pos[p] = pos
         self.pt_desc[p] = desc
@@ -219,7 +227,6 @@ class MapState:
         self.pt_found[p] = 1
         self.pt_first_frame[p] = frame_id
         self.pt_stamp[p] = self._pt_counter
-        self.pt_replaced[p] = -1
         self._pt_counter += 1
         self.mark_pts_dirty((p,))
         return p
@@ -239,6 +246,7 @@ class MapState:
         if m == 0:
             return np.zeros(0, np.int64)
         pids = np.array([self._pt_free.pop() for _ in range(m)], np.int64)
+        self._keep_previous_life(pids)
         self.pt_valid[pids] = True
         self.pt_pos[pids] = pos[:m]
         self.pt_desc[pids] = desc[:m]
@@ -252,10 +260,18 @@ class MapState:
         self.pt_first_frame[pids] = frame_id
         self.pt_stamp[pids] = np.arange(self._pt_counter,
                                         self._pt_counter + m)
-        self.pt_replaced[pids] = -1
         self._pt_counter += m
         self.mark_pts_dirty(pids)
         return pids
+
+    def _keep_previous_life(self, pids) -> None:
+        """Copy the slots' current life into the previous-life record and
+        clear the replacement table's entry: the slots are handed out."""
+        self.pt_prev_stamp[pids] = self.pt_stamp[pids]
+        self.pt_prev_replaced[pids] = self.pt_replaced[pids]
+        self.pt_prev_replaced_stamp[pids] = self.pt_replaced_stamp[pids]
+        self.pt_replaced[pids] = -1
+        self.pt_replaced_stamp[pids] = -1
 
     # ------------------------------------------------------------------
     # observations
@@ -450,35 +466,60 @@ class MapState:
         self.obs_gen = next(_DIRTY_GEN)
         self.mark_pts_dirty(victims)
 
-    def resolve_replaced(self, ids: np.ndarray, stamp_snap: int) -> np.ndarray:
+    def resolve_replaced(self, ids: np.ndarray,
+                         stamp_snap: int) -> Tuple[np.ndarray, int, int]:
         """Point ids taken when the map's point counter stood at `stamp_snap`,
-        as they stand now (Tracking::CheckReplacedInLastFrame): an id whose
-        slot is valid and older than the snapshot stays; a slot freed since
-        is followed through the replacement table to the valid point it was
-        merged into; an id erased without a replacement, a slot handed out
-        again after the snapshot, or a chain through such a slot becomes
-        -1. Chains are bounded by the capacity. -> int32 ids, the shape of
-        `ids`."""
+        as they stand now (Tracking::CheckReplacedInLastFrame). A point is a
+        life of its slot, (slot, stamp), and the life an id means is its
+        slot's last one begun before the snapshot: the current one, or the
+        previous one where the slot was handed out again since (the record
+        is one life deep). A valid life stays; a merged one is followed
+        through the replacement table to the valid point it ended in, each
+        hop landing on the target slot's current or previous life by the
+        stamp the merge recorded. An id erased without a replacement, a
+        slot handed out twice since the snapshot (or a hop's target handed
+        out twice since the merge), a cycle, or a chain through any of these
+        becomes -1. Chains are bounded by the capacity. -> (int32 ids, the
+        shape of `ids`; how many were resolved through a previous life,
+        which the table alone would have lost; how many were lost because a
+        slot was handed out more than once, an upper bound, since the life
+        lost may have been erased rather than merged)."""
         ids = np.asarray(ids)
-        out = np.full(ids.shape, -1, np.int32)
-        safe = np.clip(ids, 0, self.cap.max_points - 1)
-        old = (ids >= 0) & (self.pt_stamp[safe] < stamp_snap)
-        live = old & self.pt_valid[safe]
-        out[live] = ids[live]
-        at = np.flatnonzero(old & ~live)
-        cur = safe.ravel()[at]
-        flat = out.ravel()
+        flat = ids.ravel()
+        out = np.full(flat.shape, -1, np.int32)
+        safe = np.clip(flat, 0, self.cap.max_points - 1)
+        held = flat >= 0
+        current = held & (self.pt_stamp[safe] < stamp_snap)
+        live = current & self.pt_valid[safe]
+        out[live] = flat[live]
+        prev_stamp = self.pt_prev_stamp[safe]
+        handed_out = held & ~current
+        previous = handed_out & (prev_stamp >= 0) & (prev_stamp < stamp_snap)
+        n_lost = int((handed_out & (prev_stamp >= stamp_snap)).sum())
+        at = np.flatnonzero((current & ~live) | previous)
+        via_prev, cur = previous[at], safe[at]
+        nxt = np.where(via_prev, self.pt_prev_replaced[cur], self.pt_replaced[cur])
+        want = np.where(via_prev, self.pt_prev_replaced_stamp[cur],
+                        self.pt_replaced_stamp[cur])
+        n_reused = 0
         for _ in range(self.cap.max_points):
+            keep = nxt >= 0
+            at, nxt, want, via_prev = at[keep], nxt[keep], want[keep], via_prev[keep]
             if not len(at):
                 break
-            nxt = self.pt_replaced[cur]
-            keep = nxt >= 0
-            keep[keep] = self.pt_stamp[nxt[keep]] == self.pt_replaced_stamp[cur[keep]]
-            at, cur = at[keep], nxt[keep]
-            done = self.pt_valid[cur]
-            flat[at[done]] = cur[done]
-            at, cur = at[~done], cur[~done]
-        return flat.reshape(ids.shape)
+            now = self.pt_stamp[nxt] == want
+            before = ~now & (self.pt_prev_stamp[nxt] == want)
+            n_lost += int((~now & ~before).sum())
+            done = now & self.pt_valid[nxt]
+            out[at[done]] = nxt[done]
+            n_reused += int(via_prev[done].sum())
+            go = (now | before) & ~done
+            at, cur, before = at[go], nxt[go], before[go]
+            via_prev = via_prev[go] | before
+            nxt = np.where(before, self.pt_prev_replaced[cur], self.pt_replaced[cur])
+            want = np.where(before, self.pt_prev_replaced_stamp[cur],
+                            self.pt_replaced_stamp[cur])
+        return out.reshape(ids.shape), n_reused, n_lost
 
     def erase_keyframe(self, kf: int) -> None:
         """KeyFrame::SetBadFlag: drop observations; re-parent children to this KF's parent; record

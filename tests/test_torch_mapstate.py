@@ -141,6 +141,36 @@ class TestMapState:
         new = m.add_point(np.zeros(3, np.float32), np.zeros(8, np.uint32), kfs[0], 9)
         assert new == pts[0]
 
+    def test_slots_handed_out_match_jax_through_merges_and_erasures(self):
+        """The previous-life record kept for the replacement lookup does not
+        touch the slot order: on a scripted sequence of hand-outs, merges
+        (chains and repeats among them) and erasures both packages hand out
+        the same slots at every step, and end with the same map."""
+        (m, kfs, pts), (mj, _, _) = both()
+        rng = np.random.default_rng(1)
+        pos = rng.normal(size=(6, 3)).astype(np.float32)
+        desc = rng.integers(0, 2**32, (6, 8), dtype=np.uint32)
+        steps = [
+            lambda mm: mm.replace_points([(pts[3], pts[4]), (pts[7], pts[8])]),
+            lambda mm: [mm.add_point(pos[0], desc[0], kfs[1], 5)],   # slot pts[7]
+            lambda mm: mm.add_points_batch(pos[:3], desc[:3], kfs[2], 6).tolist(),
+            lambda mm: mm.replace_points([(pts[10], pts[11]), (pts[11], pts[12])]),
+            lambda mm: mm.erase_points(np.array([pts[20], pts[4]])),
+            lambda mm: [mm.add_point(pos[1], desc[1], kfs[1], 7)],
+            lambda mm: mm.replace_points([(pts[7], pts[12])]),   # step 1's point, merged
+            lambda mm: mm.add_points_batch(pos, desc, kfs[3], 8).tolist(),
+            lambda mm: [mm.add_point(pos[2], desc[2], kfs[0], 9)],
+        ]
+        for mm in (m, mj):
+            observe(mm, kfs, pts)
+        for i, step in enumerate(steps):
+            got, want = step(m), step(mj)
+            assert got == want and m._pt_free == mj._pt_free, i
+        # slot pts[7], handed out in steps 1 and 7, records step 1's point
+        # (stamp 50), merged into pts[12]
+        assert m.pt_prev_stamp[pts[7]] == 50 and m.pt_prev_replaced[pts[7]] == pts[12]
+        assert_same_map(m, mj)
+
     def test_points_batch_and_statistics(self):
         (m, kfs, pts), (mj, _, _) = both()
         rng = np.random.default_rng(3)

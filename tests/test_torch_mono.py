@@ -502,9 +502,11 @@ def test_replaced_points_in_the_last_frame_are_remapped(runs):
 
 def test_a_slot_handed_out_again_is_not_the_last_frames_point(runs):
     """A point the last frame tracked is merged and its slot handed out
-    again to a new point before the next frame: the port drops the id (its
-    replacement is no longer known); the JAX package stages the new,
-    unrelated point as the last frame's."""
+    again to a new point before the next frame: the port follows the slot's
+    previous life to the replacement and stages it as the last frame's
+    point, counting the ids it resolved so (the last frame's and the local
+    selection's) and losing none; the JAX package stages the new, unrelated
+    point as the last frame's."""
     gray = runs["frames"][N_FRAMES]
 
     def reuse(fork):
@@ -515,12 +517,55 @@ def test_a_slot_handed_out_again_is_not_the_last_frames_point(runs):
             m.replace_points([(p, d)])
             q = m.add_point(m.pt_pos[p] + 1.0, ~m.pt_desc[p], int(m.pt_ref_kf[p]), 0)
         assert q == p                      # the slot free list hands it out first
-        return p, np.flatnonzero(ids == p)
+        counts = None
+        if type(fork) is ttracking.Tracker:
+            in_sel = 0 if fork._local_pts is None else int((fork._local_pts == p).sum())
+            counts = (fork.reused_slot_ids, fork.replacements_lost, in_sel)
+        return p, d, np.flatnonzero(ids == p), counts
 
     for system, pkg in ((runs["system"], "torch"), (runs["jsys"], "jax")):
-        fork, _, pid, _, (p, slots) = _track_frame(system.tracker, gray, reuse)
+        fork, _, pid, _, (p, d, slots, counts) = _track_frame(system.tracker, gray, reuse)
         if pkg == "torch":
-            assert (pid[slots] == -1).all()
+            assert (pid[slots] == d).all()
             assert p not in fork.last_frame.pt_ids
+            reused, lost, in_sel = counts
+            assert fork.reused_slot_ids - reused == len(slots) + in_sel
+            assert fork.replacements_lost == lost
         else:
             assert (pid[slots] == p).all()
+
+
+def test_a_frame_in_flight_keeps_the_replacement_of_a_reused_slot(runs):
+    """The pipelined apply: a point the frame in flight matched is merged,
+    and its slot handed out again, before the frame is applied. The apply
+    resolves the id to the replacement through the slot's previous life,
+    counts it, and drops the device carry."""
+    gray = runs["frames"][N_FRAMES]
+    seen = {}
+
+    def hook(fork):
+        apply_ = fork._fused_apply
+
+        def reuse_then_apply(rec, fetched):
+            m, pid, outl = fork.map, np.asarray(fetched[1]), np.asarray(fetched[2])
+            ok = (pid >= 0) & ~outl
+            p = int(pid[ok][0])
+            with fork.map_lock:
+                d = m.add_point(m.pt_pos[p].copy(), m.pt_desc[p].copy(),
+                                int(m.pt_ref_kf[p]), 0)
+                m.replace_points([(p, d)])
+                assert m.add_point(m.pt_pos[p] + 1.0, ~m.pt_desc[p], int(m.pt_ref_kf[p]), 0) == p
+            held = (int((fork.last_frame.pt_ids == p).sum())
+                    + int((fork._local_pts == p).sum()) + int((pid == p).sum()))
+            seen.update(p=p, d=d, at=np.flatnonzero(pid == p), held=held,
+                        before=(fork.reused_slot_ids, fork.replacements_lost))
+            return apply_(rec, fetched)
+
+        fork._fused_apply = reuse_then_apply
+
+    fork, _, _, _, _ = _track_frame(runs["system"].tracker, gray, hook)
+    assert (fork.last_frame.pt_ids[seen["at"]] == seen["d"]).all()
+    assert seen["p"] not in fork.last_frame.pt_ids
+    reused, lost = seen["before"]
+    assert fork.reused_slot_ids - reused == seen["held"] and fork.replacements_lost == lost
+    assert fork._last_pid_dev is None

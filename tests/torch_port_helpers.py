@@ -137,7 +137,7 @@ def without_replacement_lookup(system):
         ids = np.asarray(ids)
         safe = np.clip(ids, 0, m.cap.max_points - 1)
         keep = (ids >= 0) & m.pt_valid[safe] & (m.pt_stamp[safe] < stamp_snap)
-        return np.where(keep, ids, -1).astype(np.int32)
+        return np.where(keep, ids, -1).astype(np.int32), 0, 0
 
     m.resolve_replaced = no_table
     system.tracker._check_replaced = lambda: None
