@@ -20,24 +20,48 @@ The optimistic-concurrency paths are driven on the port alone: a map change
 between staging and applying a triangulation or a fuse makes the stage
 return "conflict" and rerun atomically, with the same result as an
 undisturbed run; a pose correction during the BA solve drops its write-back.
+
+The host-staged local map (``device_local_map=False``) of the port's
+tracker against its device-resident one and against the JAX package's
+host-staged branch: The sequence (320x240, 800 features, 4 levels) is rendered once with the
+JAX package's renderer and the identical arrays go to every drive. The
+classic two-step path (``fused_frame=False``) takes the local-map stage
+every frame; the fetch is synchronous and mapping inline, so the drives
+are deterministic.
+
+Tolerances, and why: the host-staged and the device-resident local map run
+the same search on the same candidates, and the JAX package's host-staged
+branch the same arithmetic up to float32 noise in a pose, which moves a
+handful of associations at window and chi-square edges
+(tests/test_torch_system_api.py): per-frame camera positions agree within 1 cm,
+keyframe counts within 1, and the ATE is under 0.05 m.
+
+Both JAX systems of this file take the classic per-frame path at one
+configuration (320x240, 800 features, 4 levels, 32 keyframes, 8192 points),
+built by ``torch_port_helpers.jax_system``: the second runs the programs the
+first compiled. The JAX drives run one after the other on a thread of their
+own, beside the port's host-staged drives (``torch_port_helpers.beside``).
 """
 import numpy as np
 import pytest
 import torch
 
-from orbslam2_tpu.frontend import local_mapping as jlm
+from orbslam2_tpu.frontend import local_mapping as jlm, tracking as jtracking
 from orbslam2_tpu.geometry.camera import PinholeCamera as JCamera
 from orbslam2_tpu.io.synthetic import SyntheticSequence
 from orbslam2_tpu.ops.orb import ORBConfig as JORBConfig
 from orbslam2_tpu.slammap import mapstate as jms
-from orbslam2_tpu.system import SLAMSystem as JSystem, Sensor as JSensor
+from orbslam2_tpu.system import Sensor as JSensor
 from orbslam2_tpu.frontend.tracking import SLAMConfig as JConfig
 from orbslam2_tpu_torch.frontend import kernels as tkernels, local_mapping as tlm
+from orbslam2_tpu_torch.frontend import tracking as ttracking
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera as TCamera
+from orbslam2_tpu_torch.io.evaluate import ate_rmse
 from orbslam2_tpu_torch.ops import orb as torb
 from orbslam2_tpu_torch.slammap import mapstate as tms
+from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-import torch_port_helpers  # noqa: F401  (caps torch's intra-op threads)
+from torch_port_helpers import beside, jax_system
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 JCAM, TCAM = JCamera(**CAM_KW), TCamera(**CAM_KW)
@@ -46,13 +70,29 @@ N_FRAMES = 13
 
 
 @pytest.fixture(scope="module")
-def staged(tmp_path_factory):
+def drives(tmp_path_factory):
+    """The JAX drive that stages the last keyframe (``staged``) and then the
+    JAX host-staged drive, on a thread of their own beside the port's two
+    host-staged drives (``host_staged``)."""
     path = str(tmp_path_factory.mktemp("local_mapping") / "before_last.npz")
+    host, host_jax, host_port = _host_staged_drives()
+    staged, _ = beside(lambda: (_stage_last_keyframe(path), host_jax())[0], host_port)
+    return dict(staged=staged, host_staged=host)
+
+
+@pytest.fixture(scope="module")
+def staged(drives):
+    return drives["staged"]
+
+
+def _stage_last_keyframe(path):
+    """One JAX SLAMSystem over the sequence, the map written to `path` just
+    before its last process_keyframe. -> the keyframe and the probation set."""
     cfg = JConfig(cam=JCAM, orb=JORBConfig(n_features=800, n_levels=NL), th_depth=4.0,
                   max_keyframes=32, max_points=8192, local_point_cap=2048,
                   min_init_features=300, force_kf_every=3, fused_frame=False,
                   async_mapping=False, pipelined_fetch=False)
-    system = JSystem(cfg, JSensor.RGBD)
+    system = jax_system(cfg, JSensor.RGBD)
     mapper = system.local_mapper
     process = mapper.process_keyframe
     last = {}
@@ -266,3 +306,62 @@ def test_interrupt_and_backlog_skip_the_local_ba(staged, why):
     ran = set(mapper.stats.summary())
     assert "local_ba" not in ran and "kf_culling" not in ran and "triangulate" in ran
     assert ("fuse" in ran) == (why == "interrupt")
+
+
+# ----------------------------------------------------------------------
+# The host-staged local map of the tracker
+# ----------------------------------------------------------------------
+HOST_CFG_KW = dict(th_depth=4.0, max_keyframes=32, max_points=8192, local_point_cap=2048,
+                   min_init_features=300)
+
+
+def _jax(**kw):
+    return jax_system(jtracking.SLAMConfig(
+        cam=JCAM, orb=JORBConfig(n_features=800, n_levels=NL), **HOST_CFG_KW, **kw),
+        JSensor.RGBD)
+
+
+def _port(**kw):
+    return SLAMSystem(ttracking.SLAMConfig(
+        cam=TCAM, orb=torb.ORBConfig(n_features=800, n_levels=NL), **HOST_CFG_KW, **kw),
+        Sensor.RGBD, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def host_staged(drives):
+    return drives["host_staged"]
+
+
+def _host_staged_drives():
+    """10 frames of the lateral drive (seed 1) with the host-staged local map
+    in both packages and with the device-resident one in the port; the
+    classic two-step path (fused_frame=False) takes the local-map stage every
+    frame, synchronous fetch, mapping inline. -> (out, the JAX drive, the
+    port's two drives)."""
+    seq = SyntheticSequence(JCAM, n_frames=10, trajectory="lateral", seed=1)
+    frames = [seq.render(i) for i in range(10)]
+    kw = dict(max_frames_between_kf=10, fused_frame=False, async_mapping=False,
+              pipelined_fetch=False)
+    out = {"gt": np.stack([np.linalg.inv(p) for p in seq.poses])}
+
+    def drive(name, system):
+        for i, (g, d) in enumerate(frames):
+            system.track_rgbd(g, d, i / seq.fps)
+        out[name] = dict(est=system.tracker.full_trajectory_twc(),
+                         lost=system.tracker.trajectory_lost_mask(),
+                         kf=system.map.n_keyframes())
+        system.shutdown()
+
+    return (out, lambda: drive("jax", _jax(device_local_map=False, **kw)),
+            lambda: [drive(name, _port(device_local_map=dev, **kw))
+                     for name, dev in (("host", False), ("device", True))])
+
+
+@pytest.mark.parametrize("other", ["device", "jax"])
+def test_host_staged_local_map_matches(host_staged, other):
+    h, o = host_staged["host"], host_staged[other]
+    assert not h["lost"].any() and not o["lost"].any()
+    assert abs(h["kf"] - o["kf"]) <= 1
+    gap = np.linalg.norm(h["est"][:, :3, 3] - o["est"][:, :3, 3], axis=1)
+    assert gap.max() < 0.01, gap
+    assert ate_rmse(h["est"], host_staged["gt"]) < 0.05

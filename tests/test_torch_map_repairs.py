@@ -4,7 +4,7 @@ date with it, on small hand-made maps (no drive, no JAX package):
 its lookup) and ``Tracker._check_replaced`` (Tracking::CheckReplacedInLastFrame,
 extended to the one-frame-lagged local selection). The drives that show the
 repair against the JAX package are in tests/test_torch_mono.py; the
-temporal points after a relocalization are in tests/test_torch_localization.py.
+temporal points after a relocalization are in tests/test_torch_system_api.py.
 """
 from types import SimpleNamespace
 

@@ -43,7 +43,7 @@ from orbslam2_tpu.io.synthetic import SyntheticSequence
 from orbslam2_tpu.ops.orb import ORBConfig as JORBConfig
 from orbslam2_tpu.slammap import covisibility as jcovis, mapstate as jms, native as jnative
 from orbslam2_tpu.solvers import initializer as jinit
-from orbslam2_tpu.system import SLAMSystem as JSystem, Sensor as JSensor
+from orbslam2_tpu.system import Sensor as JSensor
 from orbslam2_tpu_torch import convert
 from orbslam2_tpu_torch.frontend import kernels as tk, local_mapping as tlm
 from orbslam2_tpu_torch.frontend import tracking as ttracking
@@ -54,7 +54,7 @@ from orbslam2_tpu_torch.slammap import covisibility as tcovis
 from orbslam2_tpu_torch.solvers import horn, initializer as tinit
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
-from torch_port_helpers import fork_tracker, j, jax_keypoints, jax_sample_sets, n, t
+from torch_port_helpers import fork_tracker, j, jax_keypoints, jax_sample_sets, jax_system, n, t
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 JCAM, TCAM = JCamera(**CAM_KW), TCamera(**CAM_KW)
@@ -114,9 +114,9 @@ def runs():
 
     # the JAX package, with the map before its last inline mapping kept
     def run_jax():
-        jsys = JSystem(jtracking.SLAMConfig(cam=JCAM, orb=JORBConfig(n_features=800,
-                                                                     n_levels=NL),
-                                            **CFG_KW), JSensor.MONOCULAR)
+        jsys = jax_system(jtracking.SLAMConfig(
+            cam=JCAM, orb=JORBConfig(n_features=800, n_levels=NL), **CFG_KW),
+            JSensor.MONOCULAR)
         jsolves, jinit_map, before_last = [], {}, {}
         solve_j = _watch(jinit, jsolves)
         _initial_map(jsys.tracker, jinit_map)
@@ -179,6 +179,9 @@ def runs():
         finally:
             tinit.initialize_two_view = solve_t
             horn.draw_sample_sets = draw
+        # still beside the JAX drive, and with nothing patched any more:
+        # test_mono_async_mapping_queues_keyframes's drive
+        queued = _async_mapping_drive()
         jsys, jres, before_last = jax_run.result()
     tres.update(solves=tsolves, init=tinit_map, dispatched=dispatched, rescued=rescued,
                 kf_fused=[f for f in kf_frames if f in fused_applied],
@@ -187,7 +190,7 @@ def runs():
     print(f"JAX native library loaded: {jres['native']}; the port tracked again "
           f"after a missed keyframe: {rescued}")
     yield dict(jax=jres, torch=tres, jsys=jsys, system=system, frames=frames,
-               before_last=before_last)
+               before_last=before_last, queued=queued)
     jsys.shutdown()
     system.shutdown()
 
@@ -325,30 +328,39 @@ def test_mono_keyframe_decision_matches_jax(runs):
                 assert got_t == got_j == want, (inliers, since, idle)
 
 
-def test_mono_async_mapping_queues_keyframes():
-    jcfg = jtracking.SLAMConfig(cam=JCAM, orb=JORBConfig(n_features=800, n_levels=NL),
-                                mono_async_mapping=True, **CFG_KW)
-    jsys = JSystem(jcfg, JSensor.MONOCULAR)
-    try:
-        assert jsys.mapping_worker.sync_mapping is False
-    finally:
-        jsys.shutdown()
+def _async_mapping_drive():
+    """14 frames of the lateral drive (seed 5) through the port with
+    mono_async_mapping: keyframes are queued to the worker."""
     seq = SyntheticSequence(JCAM, n_frames=14, trajectory="lateral", seed=5)
     system = SLAMSystem(ttracking.SLAMConfig(
         cam=TCAM, orb=TORBConfig(n_features=800, n_levels=NL), mono_async_mapping=True,
         **CFG_KW), Sensor.MONOCULAR, device="cpu")
     try:
-        assert system.mapping_worker.sync_mapping is False
-        assert system.local_mapper.cfg.monocular
+        sync, monocular = system.mapping_worker.sync_mapping, system.local_mapper.cfg.monocular
         for i in range(seq.n_frames):
             system.track_monocular(seq.render(i)[0], i / 30.0)
         lost = system.tracker.trajectory_lost_mask()
-        first = int(np.flatnonzero(~lost)[0])
-        assert first < 10 and not lost[first:].any()
         system.wait_mapping_idle()
-        assert system.map.n_points() > 50
+        return dict(sync=sync, monocular=monocular, lost=lost, pts=system.map.n_points())
     finally:
         system.shutdown()
+
+
+def test_mono_async_mapping_queues_keyframes(runs):
+    jcfg = jtracking.SLAMConfig(cam=JCAM, orb=JORBConfig(n_features=800, n_levels=NL),
+                                mono_async_mapping=True, **CFG_KW)
+    jsys = jax_system(jcfg, JSensor.MONOCULAR)
+    try:
+        assert jsys.mapping_worker.sync_mapping is False
+    finally:
+        jsys.shutdown()
+    # the port's drive ran in the module fixture, beside the JAX drive
+    q = runs["queued"]
+    assert q["sync"] is False
+    assert q["monocular"]
+    first = int(np.flatnonzero(~q["lost"])[0])
+    assert first < 10 and not q["lost"][first:].any()
+    assert q["pts"] > 50
 
 
 def test_monocular_triangulation_matches_jax(runs):

@@ -47,7 +47,7 @@ from orbslam2_tpu_torch.solvers import epnp, horn
 from orbslam2_tpu_torch.system import SLAMSystem, Sensor
 
 from torch_port_helpers import camera_centres as centres
-from torch_port_helpers import desc_np, j, jax_keypoints, jax_sample_sets, n, t
+from torch_port_helpers import beside, desc_np, j, jax_keypoints, jax_sample_sets, n, t
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 JCAM, TCAM = JCamera(**CAM_KW), PinholeCamera(**CAM_KW)
@@ -101,19 +101,35 @@ def test_solve_epnp_on_minimal_sets():
     np.testing.assert_allclose(batched, alone, atol=1e-4)
 
 
-@pytest.mark.parametrize("outlier_frac", [0.0, 0.3])
-def test_epnp_ransac_on_the_sets_jax_drew(outlier_frac):
-    pts, uv, valid, sigma2, tcw_true, n_out = pnp_problem(
-        3, outlier_frac=outlier_frac, cap=512, n_pts=150)
+OUTLIER_FRACS = (0.0, 0.3)
+
+
+def _ransac_problem(outlier_frac):
+    return pnp_problem(3, outlier_frac=outlier_frac, cap=512, n_pts=150)
+
+
+def _jax_ransac(outlier_frac):
+    """The JAX package's EPnP RANSAC on the problem and the 4-point sets it
+    drew, as numpy."""
+    pts, uv, valid, sigma2, _, _ = _ransac_problem(outlier_frac)
     key = jax.random.PRNGKey(40 * 17 + 3)
     res_j = jepnp.epnp_ransac(j(pts), j(uv), j(valid), j(sigma2), JCAM, key)
     probs = jnp.asarray(valid, jnp.float32) / valid.sum()
     sets = np.asarray(jax.vmap(lambda k_: jax.random.choice(
         k_, len(valid), (4,), replace=False, p=probs))(jax.random.split(key, 300)))
-    res_t = epnp.epnp_ransac(t(pts), t(uv), t(valid), t(sigma2), TCAM, t(sets).long())
-    assert bool(res_t.success) and bool(res_j.success)
-    np.testing.assert_array_equal(n(res_t.inliers), n(res_j.inliers))
-    np.testing.assert_allclose(n(res_t.tcw), n(res_j.tcw), atol=1e-4)
+    return dict(success=bool(res_j.success), inliers=n(res_j.inliers), tcw=n(res_j.tcw),
+                sets=sets)
+
+
+@pytest.mark.parametrize("outlier_frac", OUTLIER_FRACS)
+def test_epnp_ransac_on_the_sets_jax_drew(drives, outlier_frac):
+    pts, uv, valid, sigma2, tcw_true, n_out = _ransac_problem(outlier_frac)
+    res_j = drives["ransac"][outlier_frac]
+    res_t = epnp.epnp_ransac(t(pts), t(uv), t(valid), t(sigma2), TCAM,
+                             t(res_j["sets"]).long())
+    assert bool(res_t.success) and res_j["success"]
+    np.testing.assert_array_equal(n(res_t.inliers), res_j["inliers"])
+    np.testing.assert_allclose(n(res_t.tcw), res_j["tcw"], atol=1e-4)
     assert not n(res_t.inliers)[:n_out].any()
 
 
@@ -122,7 +138,22 @@ CFG_KW = dict(th_depth=4.0, max_keyframes=96, local_point_cap=2048, max_frames_b
 
 
 @pytest.fixture(scope="module")
-def mapped():
+def drives():
+    """The JAX package's EPnP RANSAC runs, on a thread of their own beside
+    the port's mapping drive."""
+    ransac, mapped = beside(lambda: {f: _jax_ransac(f) for f in OUTLIER_FRACS}, _map_drive)
+    return dict(ransac=ransac, mapped=mapped)
+
+
+@pytest.fixture(scope="module")
+def mapped(drives):
+    yield drives["mapped"]
+    drives["mapped"][0].shutdown()
+
+
+def _map_drive():
+    """16 frames of the lateral sequence through the port with a vocabulary,
+    a keyframe every third frame."""
     cfg = SLAMConfig(cam=TCAM, orb=ORBConfig(n_features=800, n_levels=4),
                      pipelined_fetch=False, **CFG_KW)
     seq = SyntheticSequence(TCAM, n_frames=30, trajectory="lateral", seed=1)
@@ -240,7 +271,7 @@ def test_relocalize_matches_jax(mapped, monkeypatch, frame, keep, accepted, pass
                                              .weight_matrix(tr.map))
              for tr, fr in ((jtr, jfr), (ttr, tfr))]
     assert cands[0] == cands[1] and cands[0]
-    ok = (jtr._relocalize(jfr), ttr._relocalize(tfr))
+    ok = beside(lambda: jtr._relocalize(jfr), lambda: ttr._relocalize(tfr))
     assert ok == (accepted, accepted)
     assert abs(jtr.matches_inliers - ttr.matches_inliers) <= 3
     assert [s[:3] for s in steps["jax"]] == [s[:3] for s in steps["port"]]

@@ -17,7 +17,7 @@ Tolerances, and why:
   right keypoint too: at most 1 % of the matches may differ, uR within 1e-3
   px on the rest.
 - The fused step and the drive compare poses after float32 optimisations,
-  as tests/test_torch_fused_step.py and tests/test_torch_slice.py do.
+  as tests/test_torch_fused_step.py and tests/test_torch_system_api.py do.
 """
 import jax
 import numpy as np

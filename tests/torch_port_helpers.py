@@ -4,6 +4,7 @@ in orbslam2_tpu_torch (device "cpu"), and the outputs are compared as numpy
 arrays."""
 import concurrent.futures
 import copy
+import functools
 import threading
 
 import jax
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from orbslam2_tpu.ops import orb as jorb
+from orbslam2_tpu.system import SLAMSystem as JSystem
 from orbslam2_tpu_torch import convert
 
 # The suite runs several pytest workers side by side, some of them driving
@@ -121,6 +123,27 @@ def beside(first, second):
         a = pool.submit(first)
         b = second()
         return a.result(), b
+
+
+@functools.lru_cache(maxsize=None)
+def _extract_jit(extractor):
+    return jax.jit(extractor.__call__)
+
+
+def jax_system(cfg, sensor, vocabulary=None):
+    """The JAX package's SLAMSystem, its tracker given the package's cached
+    extractor for its ORB settings and image size (``orb.get_extractor``)
+    and one jitted extraction for it. The JAX frame programs are cached on
+    the extractor object and each Tracker builds its own, so without this
+    every JAX system of a test process compiles the same programs again;
+    with it, every JAX system of one configuration runs the programs the
+    first one compiled. The extractor is a pure function of the settings
+    and the image size, so what the system computes does not change."""
+    system = JSystem(cfg, sensor, vocabulary=vocabulary)
+    tracker = system.tracker
+    tracker.extractor = jorb.get_extractor(cfg.orb, (cfg.cam.height, cfg.cam.width))
+    tracker._extract_jit = _extract_jit(tracker.extractor)
+    return system
 
 
 def without_replacement_lookup(system):
