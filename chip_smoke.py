@@ -224,11 +224,40 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             ms a frame. Then rgbd_tum --viewer on 18a's sequence: its
             published JPEG files read back
 
+21. frame programs  each sensor's fused frame step as one CUDA graph
+            (kernels.FrameProgram, the counterpart of the JAX package's
+            _fused_*_program): the RGB-D program at 640x480 / 2000 / 8 on
+            phase 14's tracker, the stereo program at phase 12's 1241x376 and
+            capacity (1536 keyframes x 150 000 points) on phase 12's, the
+            mono program at phase 17a's geometry on 17a's, each captured on
+            inputs staged from the tracker's applied state (its last frame's
+            keypoints and device carry, velocity, local selection, the map
+            mirror): one graph and one describe launch after the first call
+            (the warm-up frame; the capture runs nothing), then a replay that
+            must equal the eager step on the same inputs (host reads, early
+            stops) bit for bit in every output (pt_ids, is_outlier, visible,
+            the three counts, tcw, depth, ur, the keypoints), and the warm-up
+            frame too; 10 replays under torch.profiler must show 10 graph
+            launches and 10 orient_describe_kernel; a replay's and the eager
+            step's ms and the peak memory above the staged inputs. Then
+            phases 5, 14 (K = 1, K = 4) and 12 (its first 120 frames) driven
+            again by orbslam2_tpu_torch/tools/frame_step_ab.py: median and
+            p95 ms a frame, the fetch wait (fused_dev), device operations,
+            kernel and graph launches and describe kernels a frame and the
+            card's busy share over a profiled window of 10 frames, the peak
+            max_memory_allocated, the graphs captured, with the card's name
+            and power limit on each line. Every drive of phases 4 to 20 runs
+            its fused frames through these programs and prints the graphs its
+            tracker captured and replayed; each replay adds its one describe
+            launch to the kernel's count, so every launch gate counts what it
+            counted before
+
 Then one JSON line {"kernels": [...]} (phase 3's numbers and phase 5's
-launches at its top level, phase 13's 16-level launch and phase 12's launches
-under "stereo_16_levels", phase 19b's 16-level launch under
-"multi_session_16_levels", every drive's launches under "launches_by_path"),
-the nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+launches at its top level, each replay of a frame program counted, phase
+13's 16-level launch and phase 12's launches under "stereo_16_levels",
+phase 19b's 16-level launch under "multi_session_16_levels", every drive's
+launches under "launches_by_path", phase 21 under "frame_programs"), the
+nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -589,7 +618,9 @@ def drive(name, track, tracker, frames, seq, pace=None, pipelined=False) -> dict
     before each frame, outside its time), with the kernel's launch count set
     to 0 just before and read just after, and check the drive: every frame
     after initialisation tracked, one launch a frame (and one for each frame
-    built again or tracked again). With `pipelined` the frames in flight are
+    built again or tracked again). A fused frame replays its program's CUDA
+    graph, whose describe launch the program adds to the count; the graphs
+    the tracker captured and replayed are printed. With `pipelined` the frames in flight are
     applied after the last one, inside the timed window, and tracked frames
     are counted from the tracker's lost mask, since a pipelined frame
     returns its prediction. -> the drive's measured entries."""
@@ -666,7 +697,14 @@ def drive(name, track, tracker, frames, seq, pace=None, pipelined=False) -> dict
     if launches != n_frames + tracker.rebuilt_frames + tracker.retracked_frames:
         fail(f"{name}: {launches} launches, expected {n_frames} frames + "
              f"{tracker.rebuilt_frames} rebuilt + {tracker.retracked_frames} tracked again")
+    programs = list(tracker.frame_programs.values())
+    graphs = sum(p.captures for p in programs)
+    replays = sum(p.replays for p in programs)
+    kinds = ", ".join(p.kind for p in programs) or "no program"
+    print(f"  frame programs: {graphs} CUDA graphs captured ({kinds}), {replays} replays; "
+          f"the launch count holds one describe launch per replay", flush=True)
     return dict(launches=launches, first_ok=first_ok, tracked=tracked,
+                graphs_captured=graphs, graph_replays=replays,
                 fused_frames=fused_frames, rebuilt_frames=tracker.rebuilt_frames,
                 retracked_frames=tracker.retracked_frames,
                 revalidated_frames=tracker.revalidated_frames,
@@ -2439,9 +2477,9 @@ def track_watched(name, tracker: Tracker, track):
                    inliers=int(fetched[6]), tcw=np.array(fetched[0], np.float64))
         return apply_(rec, fetched)
 
-    def spy_step(*a):
+    def spy_step(*a, **kw):
         staged["last_pid"] = a[7].cpu().numpy()
-        return step(*a)
+        return step(*a, **kw)
 
     tracker._fused_apply = spy_apply
     tracking_mod.kernels.fused_frame_step = spy_step
@@ -3250,6 +3288,159 @@ def drive_driver_viewer(tum_argv, tmp, n_frames) -> dict:
     return dict(d, published=files)
 
 
+# ---- phase 21: the frame programs -------------------------------------------
+FRAME_PROGRAM_REPLAYS = 10     # replays traced under torch.profiler
+FRAME_STEP_STEREO_FRAMES = 120  # phase 12's drive cut for phase 21's readings
+
+
+def staged_frame_inputs(tracker: Tracker, images) -> tuple:
+    """The fused step's inputs for `images` on `tracker`'s applied state (its
+    last frame's keypoints and device carry, its velocity, the local
+    selection, the map mirror): what `Tracker._fused_dispatch` stages."""
+    tracker.flush_frames()
+    dev = tracker.device
+    last = tracker.last_frame
+    if tracker.state != TrackingState.OK or tracker.velocity is None \
+            or tracker._local_ids is None:
+        fail("frame programs: the tracker to stage from is not tracking")
+    mir = tracker.map.device_mirror(dev)
+    last_pid = tracker._last_pid_dev
+    if last_pid is None:
+        last_pid = torch.as_tensor(last.pt_ids).to(dev)
+    as_dev = lambda a, dtype=None: torch.as_tensor(a, dtype=dtype).to(dev)  # noqa: E731
+    return (*(as_dev(im, torch.float32) for im in images),
+            (as_dev(np.asarray(tracker.velocity, np.float32)),
+             as_dev(np.asarray(last.tcw, np.float32))),
+            last.kp, last_pid, as_dev(tracker._local_ids), as_dev(tracker._local_sel), 1.0,
+            mir.pt_pos, mir.pt_desc, mir.pt_valid, mir.pt_normal, mir.pt_min_dist,
+            mir.pt_max_dist)
+
+
+def check_frame_program(name, make_program, tracker, images) -> dict:
+    """Phase 21 for one sensor: the program captured on staged inputs, one
+    replay against the eager step on the same inputs, ten replays traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orbslam2_tpu_torch.tools import frame_step_ab
+
+    args = staged_frame_inputs(tracker, images)
+    prog = make_program(tracker.extractor, tracker.cam, tracker.cfg.orb.scale_factor,
+                        tracker.cfg.orb.n_levels)
+    cuda_orb.fused_orient_describe.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = prog(*args)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    if prog.captures != 1 or cuda_orb.fused_orient_describe.launches != 1:
+        fail(f"frame programs: {name}: {prog.captures} graphs and "
+             f"{cuda_orb.fused_orient_describe.launches} launches after the first call")
+    held = prog._graphs[next(iter(prog._graphs))].describe_launches
+    replay = prog(*args)
+    torch.cuda.synchronize()
+    if cuda_orb.fused_orient_describe.launches != 2 or prog.replays != 1 or held != 1:
+        fail(f"frame programs: {name}: {cuda_orb.fused_orient_describe.launches} launches "
+             f"after one replay ({held} held by the graph)")
+    eager = prog.run(*args)             # the eager form: host reads, early stops
+    eager_again = prog.run(*args)
+    torch.cuda.synchronize()
+    def differing(x, y) -> dict:
+        """The fields of two steps' outputs that differ in a bit, with their
+        largest difference."""
+        out = {}
+        for field, a in kernels._out_tensors(x).items():
+            b = kernels._out_tensors(y)[field]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if a.shape != b.shape or not torch.equal(a, b):
+                out[field] = float((kernels._out_tensors(x)[field].double()
+                                    - kernels._out_tensors(y)[field].double()).abs().max())
+        return out
+
+    diffs = {f"{label}:{f}": d for label, other in (("eager", eager), ("warm-up", warm))
+             for f, d in differing(replay, other).items()}
+    eager_spread = differing(eager, eager_again)
+    if diffs:
+        fail(f"frame programs: {name}: the replay differs from the step ({diffs}); the "
+             f"eager step against itself: {eager_spread or 'identical'}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        for _ in range(FRAME_PROGRAM_REPLAYS):
+            prog(*args)
+        torch.cuda.synchronize()
+    c = frame_step_ab.window_counts(trace)
+    graphs, describe = c["graphs"], c["describe"]
+    if graphs != FRAME_PROGRAM_REPLAYS or describe != FRAME_PROGRAM_REPLAYS:
+        fail(f"frame programs: {name}: {FRAME_PROGRAM_REPLAYS} replays traced {graphs} graph "
+             f"launches and {describe} describe kernels")
+    replay_ms = float(np.median([_timed(lambda: prog(*args), torch.cuda.synchronize)[1]
+                                 for _ in range(5)]))
+    eager_ms = float(np.median([_timed(lambda: prog.run(*args), torch.cuda.synchronize)[1]
+                                for _ in range(5)]))
+    graph_mem = torch.cuda.max_memory_allocated() - base_mem
+    print(f"  {name}: captured in {capture_ms:.1f} ms (warm-up frame and capture), the replay "
+          f"equal to the eager step bit for bit (pt_ids, is_outlier, visible, counts, tcw, "
+          f"depth, ur, keypoints; the warm-up too); {FRAME_PROGRAM_REPLAYS} replays traced: "
+          f"{graphs} graph launches, {describe} orient_describe_kernel, "
+          f"{c['graph_kernels'] / FRAME_PROGRAM_REPLAYS:.0f} kernels inside a replay and "
+          f"{c['launches'] / FRAME_PROGRAM_REPLAYS:.0f} outside it; a replay {replay_ms:.2f} ms, "
+          f"the eager step {eager_ms:.2f} ms (host clock around a synchronised call); inliers "
+          f"{int(replay.n_inliers)}, motion-model matches {int(replay.mm_matches)}; peak "
+          f"memory {graph_mem / 2**20:.0f} MiB above the staged inputs (the graph's pool, "
+          f"its buffers and the eager steps)", flush=True)
+    return dict(capture_ms=capture_ms, replay_ms=replay_ms, eager_ms=eager_ms,
+                peak_memory_above_staged_bytes=int(graph_mem),
+                kernels_per_replay=c["graph_kernels"] / FRAME_PROGRAM_REPLAYS,
+                launches_outside_per_replay=c["launches"] / FRAME_PROGRAM_REPLAYS,
+                graph_launches=graphs, describe_kernels=describe,
+                describe_per_replay=held, inliers=int(replay.n_inliers),
+                eager_run_to_run=eager_spread)
+
+
+def check_frame_programs(rgbd_system, seq, stereo_system, stereo_seq, stereo_frames,
+                         mono_system, mono_seq, frames, smi_line) -> dict:
+    """Phase 21: the RGB-D, stereo and mono programs captured on staged inputs
+    from phases 14, 12 and 17a and held to the eager step; then phases 5, 12
+    (cut) and 14 driven again by orbslam2_tpu_torch/tools/frame_step_ab.py
+    for their per-frame readings."""
+    from orbslam2_tpu_torch.tools import frame_step_ab
+
+    print("[frame programs] each fused frame step as one CUDA graph (replay = eager step)",
+          flush=True)
+    out = {
+        "rgbd": check_frame_program("rgbd 640x480 / 2000 / 8", kernels._fused_rgbd_program,
+                                    rgbd_system.tracker, frames[-1]),
+        "stereo": check_frame_program(
+            "stereo 1241x376 / 1536 x 150 000", kernels._fused_stereo_program,
+            stereo_system.tracker, stereo_frames[-1]),
+        "mono": check_frame_program("mono 640x480 / 2000 / 8 (17a)", kernels._fused_mono_program,
+                                    mono_system.tracker, (next_view(mono_seq, N_FRAMES_MONO),)),
+    }
+    readings = []
+
+    def report(r):
+        readings.append(r)
+        w = r["window"]
+        wait = r["fused_dev_ms"].get("median_ms", float("nan"))
+        print(f"  {r['name']}: median {r['median_ms']:.2f} ms, p95 {r['p95_ms']:.2f} ms a frame; "
+              f"fetch wait (fused_dev) median {wait:.3f} ms; window of {w['frames']} frames "
+              f"from {w['first']}: {w['device_kernels_per_frame']:.0f} device kernels "
+              f"({w['graph_kernels_per_frame']:.0f} inside graph replays), "
+              f"{w['kernel_launches_per_frame']:.0f} kernel and "
+              f"{w['graph_launches_per_frame']:.2f} graph launches, "
+              f"{w['describe_kernels_per_frame']:.2f} describe kernels a frame, card busy "
+              f"{w['busy_share'] * 100:.1f} %; peak memory {r['peak_memory_bytes'] / 2**20:.0f} "
+              f"MiB; {r['graphs_captured']} graphs captured; {r['tracked']}/{r['frames']} "
+              f"tracked, ATE {r['ate_m']:.4f} m; {r['seconds']:.1f} s | {smi_line}", flush=True)
+
+    for r in frame_step_ab.rgbd_drives(frames, seq):
+        report(r)
+    report(frame_step_ab.stereo_drive(stereo_frames[:FRAME_STEP_STEREO_FRAMES], stereo_seq))
+    out["readings"] = readings
+    return out
+
+
 def main() -> None:
     # ---- phase 1: device --------------------------------------------------
     if not torch.cuda.is_available():
@@ -3336,6 +3527,9 @@ def main() -> None:
         # ---- phase 20: the ROS-style node, the viewers, the AR overlay ----
         periphery = drive_periphery(cam, orb_cfg, seq, frames, place_system.vocabulary, tmp)
         driver_viewer = drive_driver_viewer(tum_argv, tmp, N_FRAMES)
+    # ---- phase 21: the frame programs -------------------------------------
+    programs = check_frame_programs(defaults_system, seq, stereo_system, stereo_seq,
+                                    stereo_frames, mono_a_system, mono_a_seq, frames, smi_line)
     check_no_jax("after the drives")  # a lazy import on a drive shows here
 
     print(json.dumps({"kernels": [{
@@ -3343,7 +3537,9 @@ def main() -> None:
         "source": "orbslam2_tpu_torch/csrc/orient_describe.cu",
         "replaces": "orbslam2_tpu/ops/pallas_orb.py:196",
         # one launch over one 640x480 frame's 8 levels (phase 3) and the
-        # RGB-D main path's launches (phase 5), as in earlier slices; the
+        # RGB-D main path's launches (phase 5), as in earlier slices, each
+        # fused frame's launch inside its CUDA graph counted at its replay
+        # (phase 21 traces one orient_describe_kernel a replay); the
         # stereo main path's launch over both images' 16 levels at 1241x376
         # (phases 12 and 13) under stereo_16_levels
         **kernel, "launches": main_path["launches"],
@@ -3390,7 +3586,8 @@ def main() -> None:
         "mono_loop": mono_loop, "mono_relocalization": mono_reloc,
         "replaced_points": replaced,
         "drivers": drivers, "distributed_gba": gba_parallel, "multi_session": multi,
-        "periphery": periphery, "driver_viewer": driver_viewer}]}), flush=True)
+        "periphery": periphery, "driver_viewer": driver_viewer,
+        "frame_programs": programs}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,13 @@ Conventions:
 - information = invSigma2(octave) * I
 - chi2 thresholds 5.991 (mono) / 7.815 (stereo)
 - left-multiplicative twist update exp(xi) * Tcw
+
+The LM round stops early where reading its convergence flag from the host is
+free (CPU tensors, or a card's stream that is not capturing a CUDA graph);
+otherwise it runs all its steps with the flag carried on the device and the
+pose, damping and cost frozen once it is set, as the JAX package's
+``lax.while_loop`` computes them. Both forms give the same result bit for
+bit.
 """
 from __future__ import annotations
 
@@ -33,6 +40,13 @@ class PoseObs(NamedTuple):
     inv_sigma2: torch.Tensor  # [N] per-octave information scale
     is_stereo: torch.Tensor   # [N] bool
     valid: torch.Tensor       # [N] bool
+
+
+def host_may_read(t: torch.Tensor) -> bool:
+    """Whether a step on ``t``'s device may read a value back to the host:
+    always on the CPU; on a card unless its current stream is capturing a
+    CUDA graph, which no host read may enter."""
+    return t.device.type != "cuda" or not torch.cuda.is_current_stream_capturing()
 
 
 def _project(tcw: torch.Tensor, obs: PoseObs, cam: PinholeCamera):
@@ -113,6 +127,7 @@ def pose_optimization(
     rounds: int = 4,
     iters: int = 10,
     compact_cap: Optional[int] = 1024,
+    stop_early: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (tcw, inlier_mask [N] bool, n_inliers int32 scalar tensor).
 
@@ -120,11 +135,18 @@ def pose_optimization(
     reclassifies inliers by chi2 against 5.991/7.815; the Huber kernel is
     active for the first two rounds only.
 
+    ``stop_early``: end a round at its first converged step, reading the
+    flag on the host (one synchronisation a step); False runs every step
+    with the flag on the device and no host read, the form a CUDA graph
+    captures. None takes ``host_may_read(tcw0)``. The result is the same.
+
     When the observation capacity exceeds ``compact_cap``, the LM rounds
     run on a compacted copy of the valid rows (see _compact_obs); the
     returned inlier mask is always the full-capacity chi2 classification
     at the final pose.
     """
+    if stop_early is None:
+        stop_early = host_may_read(tcw0)
     obs_full = obs
     if compact_cap is not None and obs.valid.shape[0] > compact_cap:
         obs = _compact_obs(obs, compact_cap)
@@ -150,10 +172,12 @@ def pose_optimization(
     def lm_round(tcw, inlier, use_huber: bool, cost):
         # Early-exit LM: once a proposed step is below numerical noise
         # (|xi|^2 < 1e-10) or damping is maxed out, every further iteration
-        # is a no-op. Reading `done` costs one host synchronisation per step;
-        # a step is some sixty small launches, so stopping at convergence
-        # (typically well under `iters` steps) is the cheaper side.
-        lam = torch.tensor(1e-3, dtype=torch.float32, device=dev)
+        # is a no-op. Eagerly, reading `done` costs one host synchronisation
+        # per step, and a step is a few hundred small launches, so stopping
+        # at convergence (typically well under `iters` steps) is the cheaper
+        # side; without host reads the steps after `done` change nothing.
+        lam = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
         for _ in range(iters):
             e, j, z = _residual_jacobian_flat(tcw, obs, cam)
             c = _chi2(e, obs)
@@ -174,15 +198,22 @@ def pose_optimization(
             tcw_new = se3.retract(tcw, xi)
             cost_new = total_cost(tcw_new, inlier, use_huber)
             accept = cost_new < cost
-            tcw = torch.where(accept, tcw_new, tcw)
-            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-8),
-                              torch.clamp(lam * 4.0, max=1e6))
-            cost = torch.where(accept, cost_new, cost)
+            tcw_step = torch.where(accept, tcw_new, tcw)
+            lam_step = torch.where(accept, torch.clamp(lam * 0.5, min=1e-8),
+                                   torch.clamp(lam * 4.0, max=1e6))
+            cost_step = torch.where(accept, cost_new, cost)
             # the test is on the PROPOSED step, not gated on acceptance: at a
             # stationary point LM keeps proposing and rejecting such steps
-            done = (torch.sum(xi * xi) < 1e-10) | (lam >= 1e6)
-            if bool(done):
-                break
+            converged = (torch.sum(xi * xi) < 1e-10) | (lam_step >= 1e6)
+            if stop_early:
+                tcw, lam, cost = tcw_step, lam_step, cost_step
+                if bool(converged):
+                    break
+            else:
+                tcw = torch.where(done, tcw, tcw_step)
+                lam = torch.where(done, lam, lam_step)
+                cost = torch.where(done, cost, cost_step)
+                done = done | converged
         return tcw
 
     # Each round boundary runs ONE residual pass that yields both the chi2

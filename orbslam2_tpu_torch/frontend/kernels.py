@@ -290,19 +290,25 @@ class TrackStepResult(NamedTuple):
 
 def _search_last_widening(tcw_pred, last_pos, last_valid, last_desc,
                           last_octave, last_angle, kp, cam, scale_factor,
-                          n_levels) -> torch.Tensor:
+                          n_levels, host_branch=None) -> torch.Tensor:
     """Projection search at radius 15, repeated at 30 when fewer than 20
-    matches came back (the reference's 2*th retry). The count is read on the
-    host: one synchronisation per frame instead of always paying the second
-    search. -> assoc [N]."""
-    res = search_by_projection_last(
-        tcw_pred, last_pos, last_valid, last_desc, last_octave, last_angle,
-        kp, 15.0, cam, scale_factor, n_levels)
-    if int((res.assoc >= 0).sum()) < 20:
-        res = search_by_projection_last(
+    matches came back (the reference's 2*th retry). With ``host_branch`` the
+    count is read on the host, one synchronisation a frame, and the second
+    search runs only when it is needed; without it both searches run and the
+    count selects on the device, as the JAX package's ``lax.cond``. None
+    takes ``pose_opt.host_may_read``. -> assoc [N]."""
+    def search(radius):
+        return search_by_projection_last(
             tcw_pred, last_pos, last_valid, last_desc, last_octave,
-            last_angle, kp, 30.0, cam, scale_factor, n_levels)
-    return res.assoc
+            last_angle, kp, radius, cam, scale_factor, n_levels).assoc
+
+    assoc = search(15.0)
+    n15 = (assoc >= 0).sum()
+    if host_branch is None:
+        host_branch = pose_opt.host_may_read(assoc)
+    if host_branch:
+        return search(30.0) if int(n15) < 20 else assoc
+    return torch.where(n15 < 20, search(30.0), assoc)
 
 
 def motion_model_step(
@@ -391,9 +397,14 @@ class FusedFrameOut:
 def _fused_track_core(kp, ur, depth, tcw_pred, last_kp, last_pid,
                       local_ids, local_sel, radius_mult,
                       pt_pos, pt_desc, pt_valid, pt_normal, pt_min, pt_max,
-                      cam, scale_factor, n_levels) -> FusedFrameOut:
+                      cam, scale_factor, n_levels, host_reads=None) -> FusedFrameOut:
     """Motion-model search + pose opt + local-map search + second pose opt
     on the freshly built frame — the device side of one whole tracked frame.
+
+    ``host_reads`` (None: ``pose_opt.host_may_read``) picks the eager form,
+    which reads the widening's match count and the LM's convergence flags
+    on the host, or the capture form, which reads nothing back and gives
+    the same outputs.
 
     - last frame's map-point positions are gathered from the resident
       mirror via `last_pid` (the carry is one [N] integer tensor);
@@ -411,13 +422,14 @@ def _fused_track_core(kp, ur, depth, tcw_pred, last_kp, last_pid,
     last_valid = (last_pid >= 0) & pt_valid[last_safe]
     assoc = _search_last_widening(
         tcw_pred, last_pos, last_valid, last_kp.desc, last_kp.octave,
-        last_kp.angle, kp, cam, scale_factor, n_levels)
+        last_kp.angle, kp, cam, scale_factor, n_levels, host_reads)
     matched = assoc >= 0
     n_last = last_pid.shape[0]
     pid_mm = torch.where(matched, last_pid[assoc.clamp(0, n_last - 1)], -1)
     pos_mm = pt_pos[pid_mm.clamp(0, p_cap - 1)]
     obs1 = build_pose_obs_from_frame(kp, ur, pos_mm, matched, scale_factor)
-    tcw1, inlier1, n_in1 = pose_opt.pose_optimization(tcw_pred, obs1, cam)
+    tcw1, inlier1, n_in1 = pose_opt.pose_optimization(
+        tcw_pred, obs1, cam, stop_early=host_reads)
     mm_matches = matched.sum()
     # outlier associations are dropped before the local-map stage
     pid1 = torch.where(matched & inlier1, pid_mm, -1)
@@ -425,7 +437,7 @@ def _fused_track_core(kp, ur, depth, tcw_pred, last_kp, last_pid,
     # --- local-map search + second pose opt ---------------------------
     # [P+1] taken-mask by scatter; slot P collects the unassociated slots
     taken = torch.zeros(p_cap + 1, dtype=torch.bool, device=pt_pos.device)
-    taken[torch.where(pid1 >= 0, pid1, p_cap)] = True
+    taken.index_fill_(0, torch.where(pid1 >= 0, pid1, p_cap), True)
     sel = local_sel & ~taken[local_ids]
     prior_mask = pid1 >= 0
     info, res2 = search_local_points_gathered(
@@ -438,7 +450,8 @@ def _fused_track_core(kp, ur, depth, tcw_pred, last_kp, last_pid,
     used = pid2 >= 0
     pos2 = pt_pos[pid2.clamp(0, p_cap - 1)]
     obs2 = build_pose_obs_from_frame(kp, ur, pos2, used, scale_factor)
-    tcw2, inlier2, n_in2 = pose_opt.pose_optimization(tcw1, obs2, cam)
+    tcw2, inlier2, n_in2 = pose_opt.pose_optimization(
+        tcw1, obs2, cam, stop_early=host_reads)
     is_outlier = used & ~inlier2
     pid_final = torch.where(used & inlier2, pid2, -1)
     return FusedFrameOut(
@@ -458,26 +471,199 @@ def _resolve_pred(tcw_pred) -> torch.Tensor:
     return tcw_pred
 
 
-def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
-                     tcw_pred, last_kp, last_pid, local_ids, local_sel,
-                     radius_mult, pt_pos, pt_desc, pt_valid, pt_normal,
-                     pt_min, pt_max) -> FusedFrameOut:
-    """The fused whole-frame step for the sensor's image tuple: frame build
-    followed by `_fused_track_core`. `sensor_images` is ``("rgbd", (gray,
-    depth))``, ``("stereo", (left, right))`` or ``("mono", (gray,))``; a
-    monocular frame has no depth, so its keypoints enter both pose
-    optimizations as monocular observations (uR = depth = -1). `tcw_pred`:
-    a pose or a ``(velocity, tcw_prev)`` pair (`_resolve_pred`)."""
-    from orbslam2_tpu_torch.frontend import frame as frame_mod
+_KP_FIELDS = tuple(f.name for f in dataclasses.fields(Keypoints))
+_BUILDS = {"rgbd": "_rgbd_build", "stereo": "_stereo_build", "mono": "_mono_build"}
 
+
+def _out_tensors(out: FusedFrameOut) -> dict:
+    """The tensors of a FusedFrameOut by name, the keypoints' as ``kp.<field>``."""
+    fields = {f"kp.{f}": getattr(out.kp, f) for f in _KP_FIELDS}
+    fields.update((f.name, getattr(out, f.name)) for f in dataclasses.fields(out)
+                  if f.name != "kp")
+    return fields
+
+
+def _clone_out(out: FusedFrameOut) -> FusedFrameOut:
+    kp = Keypoints(**{f: getattr(out.kp, f).clone() for f in _KP_FIELDS})
+    return dataclasses.replace(out, kp=kp, **{
+        f.name: getattr(out, f.name).clone() for f in dataclasses.fields(out) if f.name != "kp"})
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One captured graph: its input and output buffers, the describe
+    launches one replay makes, and the mirror tensors last copied in."""
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list
+    outputs: FusedFrameOut
+    describe_launches: int
+    mirror: list
+
+
+class FrameProgram:
+    """The fused whole-frame step of one sensor as one program: the
+    counterpart of the JAX package's jitted ``_fused_*_program``.
+
+    Called with the images, then the arguments of ``_fused_track_core``
+    after the frame's own (``tcw_pred`` a pose or a ``(velocity, tcw_prev)``
+    pair, ``last_kp``, ``last_pid``, ``local_ids``, ``local_sel``,
+    ``radius_mult``, the six mirror tensors). On the CPU a call is the eager
+    step (``run``). On a card the first call for a set of input shapes runs
+    the step in its capture form (no host read), returns those outputs and
+    captures the same step into a ``torch.cuda.CUDAGraph`` on a side stream
+    of the program's own; every later call copies its inputs into the
+    graph's buffers on the current stream, replays the graph there and
+    returns copies of its outputs, which a later replay leaves alone. The
+    mirror tensors are copied only when the mirror replaced them (a sync
+    never writes them in place). A new shape captures a new graph, as
+    ``jax.jit`` traces again. A graph's buffers are not reentrant, so each
+    tracker owns its programs (``fused_frame_step(..., programs=)``), and a
+    deep copy of a program is a new program with no graph. A capture or a
+    replay that fails raises; nothing falls back to the eager step.
+
+    ``replays`` counts the replays; each adds the describe launches it
+    holds (one) to ``cuda_orb.fused_orient_describe.launches``, which no
+    wrapper call counts inside a graph."""
+
+    def __init__(self, kind, extractor, cam, scale_factor, n_levels):
+        self.kind = kind
+        self.n_images = 1 if kind == "mono" else 2
+        self.extractor, self.cam = extractor, cam
+        self.scale_factor, self.n_levels = scale_factor, n_levels
+        self._graphs: dict = {}
+        self._stream = None
+        self.replays = 0
+
+    def __deepcopy__(self, memo):
+        return type(self)(self.kind, self.extractor, self.cam, self.scale_factor,
+                          self.n_levels)
+
+    @property
+    def captures(self) -> int:
+        return len(self._graphs)
+
+    def run(self, *args, host_reads=None) -> FusedFrameOut:
+        """The step, eagerly: frame build, then `_fused_track_core`."""
+        from orbslam2_tpu_torch.frontend import frame as frame_mod
+
+        imgs, (tcw_pred, *rest) = args[:self.n_images], args[self.n_images:]
+        kp, ur, depth = getattr(frame_mod, _BUILDS[self.kind])(self.extractor, self.cam, *imgs)
+        return _fused_track_core(
+            kp, ur, depth, _resolve_pred(tcw_pred), *rest, self.cam,
+            self.scale_factor, self.n_levels, host_reads=host_reads)
+
+    def __call__(self, *args) -> FusedFrameOut:
+        dev = args[0].device
+        if dev.type != "cuda":
+            return self.run(*args)
+        flat, pair = self._flatten(args)
+        key = (pair,) + tuple((tuple(x.shape), x.dtype) for x in flat)
+        with torch.cuda.device(dev):
+            captured = self._graphs.get(key)
+            if captured is None:
+                return self._capture(key, flat, pair)
+            return self._replay(captured, flat)
+
+    def _flatten(self, args):
+        """-> (the inputs as one list of tensors, ids as int64 and the
+        radius as a 0-d float32 tensor; whether the prediction is a pair)."""
+        n = self.n_images
+        tcw_pred, last_kp, last_pid, local_ids, local_sel, radius_mult, *pt = args[n:]
+        pair = isinstance(tcw_pred, tuple)
+        pred = list(tcw_pred) if pair else [tcw_pred]
+        dev = args[0].device
+        radius = torch.as_tensor(radius_mult, dtype=torch.float32).to(dev) \
+            if isinstance(radius_mult, torch.Tensor) \
+            else torch.full((), float(radius_mult), dtype=torch.float32, device=dev)
+        return [*args[:n], *pred, *(getattr(last_kp, f) for f in _KP_FIELDS),
+                last_pid.long(), local_ids.long(), local_sel, radius, *pt], pair
+
+    def _unflatten(self, flat, pair):
+        i = self.n_images
+        pred = (flat[i], flat[i + 1]) if pair else flat[i]
+        i += 2 if pair else 1
+        kp = Keypoints(**dict(zip(_KP_FIELDS, flat[i:i + len(_KP_FIELDS)])))
+        return (*flat[:self.n_images], pred, kp, *flat[i + len(_KP_FIELDS):])
+
+    def _capture(self, key, flat, pair) -> FusedFrameOut:
+        from orbslam2_tpu_torch.ops import cuda_orb
+
+        inputs = [x.clone() for x in flat]
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        side, current = self._stream, torch.cuda.current_stream()
+        # warm-up on the capture stream (library handles and workspaces are
+        # made outside the capture): the frame's own outputs
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self.run(*self._unflatten(inputs, pair), host_reads=False)
+        current.wait_stream(side)
+        for t in _out_tensors(out).values():
+            t.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        counted = cuda_orb.fused_orient_describe.launches
+        # thread_local: the mapping worker goes on queueing work on its own
+        # stream while this thread captures
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            outputs = self.run(*self._unflatten(inputs, pair), host_reads=False)
+        held = cuda_orb.fused_orient_describe.launches - counted
+        cuda_orb.fused_orient_describe.launches = counted   # a capture runs nothing
+        self._graphs[key] = _Captured(graph, inputs, outputs, held, flat[-6:])
+        return out
+
+    def _replay(self, captured: _Captured, flat) -> FusedFrameOut:
+        from orbslam2_tpu_torch.ops import cuda_orb
+
+        n_mirror = len(captured.mirror)
+        for dst, src in zip(captured.inputs[:-n_mirror], flat[:-n_mirror]):
+            dst.copy_(src)
+        for dst, src, held in zip(captured.inputs[-n_mirror:], flat[-n_mirror:],
+                                  captured.mirror):
+            if src is not held:
+                dst.copy_(src)
+        captured.mirror = flat[-n_mirror:]
+        captured.graph.replay()
+        self.replays += 1
+        cuda_orb.fused_orient_describe.launches += captured.describe_launches
+        return _clone_out(captured.outputs)
+
+
+def _fused_rgbd_program(extractor, cam, scale_factor, n_levels) -> FrameProgram:
+    return FrameProgram("rgbd", extractor, cam, scale_factor, n_levels)
+
+
+def _fused_stereo_program(extractor, cam, scale_factor, n_levels) -> FrameProgram:
+    return FrameProgram("stereo", extractor, cam, scale_factor, n_levels)
+
+
+def _fused_mono_program(extractor, cam, scale_factor, n_levels) -> FrameProgram:
+    return FrameProgram("mono", extractor, cam, scale_factor, n_levels)
+
+
+_PROGRAMS = {"rgbd": _fused_rgbd_program, "stereo": _fused_stereo_program,
+             "mono": _fused_mono_program}
+
+
+def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
+                     *args, programs=None) -> FusedFrameOut:
+    """The fused whole-frame step for the sensor's image tuple, through the
+    sensor's program. `sensor_images` is ``("rgbd", (gray, depth))``,
+    ``("stereo", (left, right))`` or ``("mono", (gray,))``; a monocular frame
+    has no depth, so its keypoints enter both pose optimizations as
+    monocular observations (uR = depth = -1). `args`: ``tcw_pred`` (a pose or
+    a ``(velocity, tcw_prev)`` pair, `_resolve_pred`) and the rest of
+    `_fused_track_core`'s arguments after the frame's own. `programs`: the
+    caller's programs by sensor, filled here (a tracker keeps one; a program
+    made for another extractor or camera is replaced); without it a call
+    makes a program of its own, which on a card captures a graph it never
+    replays."""
     kind, imgs = sensor_images
-    build = {"rgbd": frame_mod._rgbd_build, "stereo": frame_mod._stereo_build,
-             "mono": frame_mod._mono_build}[kind]
-    kp, ur, depth = build(extractor, cam, *imgs)
-    return _fused_track_core(
-        kp, ur, depth, _resolve_pred(tcw_pred), last_kp, last_pid, local_ids,
-        local_sel, radius_mult, pt_pos, pt_desc, pt_valid, pt_normal, pt_min,
-        pt_max, cam, scale_factor, n_levels)
+    programs = {} if programs is None else programs
+    prog = programs.get(kind)
+    if prog is None or prog.extractor is not extractor or (
+            prog.cam, prog.scale_factor, prog.n_levels) != (cam, scale_factor, n_levels):
+        prog = programs[kind] = _PROGRAMS[kind](extractor, cam, scale_factor, n_levels)
+    return prog(*imgs, *args)
 
 
 def build_pose_obs_from_frame(

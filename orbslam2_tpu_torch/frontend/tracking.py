@@ -195,6 +195,9 @@ class Tracker:
         self._selection_fresh = False  # set when a classic-path frame just
         # computed the selection (skip the end-of-frame recompute)
         self._last_pid_dev: Optional[torch.Tensor] = None  # device [N]
+        # the fused frame programs (kernels.FrameProgram) of this tracker, by
+        # sensor: on a card each holds its CUDA graphs
+        self.frame_programs: dict = {}
         # localization-mode VO state (the reference's mbVO): True while the
         # frame tracks under 10 map points and survives on temporal points
         self.mb_vo = False
@@ -510,7 +513,7 @@ class Tracker:
             (vel, tcw_prev), last_kp, last_pid, local_ids, local_sel,
             radius_mult,
             mir.pt_pos, mir.pt_desc, mir.pt_valid, mir.pt_normal,
-            mir.pt_min_dist, mir.pt_max_dist)
+            mir.pt_min_dist, mir.pt_max_dist, programs=self.frame_programs)
         return dict(out=out, kind=kind, imgs_d=imgs_d, timestamp=timestamp,
                     frame_id=frame_id, corr_gen=corr_gen, stamp_snap=stamp_snap,
                     kf_snap=kf_snap, local_pts=local_pts)

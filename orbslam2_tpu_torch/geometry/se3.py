@@ -134,7 +134,9 @@ def from_rt(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(batch + (4, 4), dtype=r.dtype, device=r.device)
     out[..., :3, :3] = r
     out[..., :3, 3] = t
-    out[..., 3, 3] = 1.0
+    # fill_, not `= 1.0`: a Python number assigned to a CUDA element goes
+    # through a host tensor, which no CUDA graph capture may copy from
+    out[..., 3, 3].fill_(1.0)
     return out
 
 

@@ -80,7 +80,9 @@ def match_stereo(
     # 1.5 * 1.4 * the median matched distance
     d_sorted = torch.sort(torch.where(matched, best_d, hamming.INVALID_DIST)).values
     n_m = matched.sum()
-    median = d_sorted[torch.clamp(n_m // 2, min=0)].to(torch.float32)
+    # a gather, not an index by a 0-d tensor, which reads the index on the
+    # host (and so cannot enter a CUDA graph)
+    median = d_sorted.gather(0, torch.clamp(n_m // 2, min=0).reshape(1))[0].to(torch.float32)
     keep = matched & (best_d.to(torch.float32) <= 1.5 * 1.4 * median)
     neg = torch.full_like(ur, -1.0)
     return torch.where(keep, ur, neg), torch.where(keep, depth, neg)

@@ -16,6 +16,7 @@ pose within 1e-3 in twist norm.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from orbslam2_tpu.frontend import kernels as jk
 from orbslam2_tpu.geometry import se3 as jse3
@@ -27,7 +28,7 @@ from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera as TCamera
 from orbslam2_tpu_torch.ops.orb import ORBConfig
 
-from torch_port_helpers import j, jax_keypoints, n, t
+from torch_port_helpers import HostRead, j, jax_keypoints, n, no_host_reads, t
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 JCAM, TCAM = JCamera(**CAM_KW), TCamera(**CAM_KW)
@@ -56,7 +57,9 @@ def staged():
         local_ids=tr._local_ids, local_sel=tr._local_sel,
         pt=[m.pt_pos, m.pt_desc, m.pt_valid, m.pt_normal, m.pt_min_dist, m.pt_max_dist],
         kf_desc=m.kf_kp_desc[0], kf_valid=(m.kf_pt[0] >= 0) & m.kf_kp_valid[0],
-        kf_angle=m.kf_kp_angle[0], tkp=kp, tlast_kp=tr.last_frame.kp)
+        kf_angle=m.kf_kp_angle[0], tkp=kp, tlast_kp=tr.last_frame.kp,
+        gray=gray.astype(np.float32), depth_img=depth.astype(np.float32),
+        extractor=tr.extractor)
     assert (s["last_pid"] >= 0).sum() > 100 and s["local_sel"].sum() > 100
     return s
 
@@ -137,3 +140,79 @@ def test_search_by_descriptor_matches_jax(staged):
     np.testing.assert_array_equal(n(bk_t), n(bk_j))
     np.testing.assert_array_equal(n(bd_t), n(bd_j))
     assert (n(bk_j) >= 0).sum() > 50
+
+
+# the staged frame's prediction moved 0.4 m along the camera's y axis and
+# two of every three last-frame points dropped: 14 matches at radius 15 and
+# 56 at 30, so the widening decides; unmoved, 291 at 15
+WIDENING_CASES = {"few_at_15": (0.4, 3), "many_at_15": (0.0, 1)}
+
+
+@pytest.mark.parametrize("case", list(WIDENING_CASES))
+def test_widening_on_the_device_equals_the_host_branch(staged, case):
+    """`_search_last_widening` selecting on the device (both searches, as the
+    JAX package's lax.cond) gives the host branch's associations exactly."""
+    s = staged
+    shift, keep_every = WIDENING_CASES[case]
+    pred = s["tcw_pred"].copy()
+    pred[1, 3] += shift
+    pos, valid, lp = s["pt"][0], s["pt"][2], s["last_pid"]
+    last_valid = (lp >= 0) & valid[np.maximum(lp, 0)] & (np.arange(len(lp)) % keep_every == 0)
+    lk = s["tlast_kp"]
+    args = (t(pred), t(pos[np.maximum(lp, 0)]), t(last_valid), lk.desc, lk.octave,
+            lk.angle, s["tkp"], TCAM, SF, NL)
+    r15 = tk.search_by_projection_last(*args[:7], 15.0, *args[7:])
+    n15 = int((r15.assoc >= 0).sum())
+    assert (n15 < 20) == (case == "few_at_15")
+    on_host = tk._search_last_widening(*args, host_branch=True)
+    on_device = tk._search_last_widening(*args, host_branch=False)
+    assert torch.equal(on_device, on_host)
+    if n15 < 20:
+        assert int((on_host >= 0).sum()) > 40
+    else:
+        assert torch.equal(on_host, r15.assoc)
+
+
+def _core_args(s):
+    return (s["tkp"], t(s["ur"]), t(s["depth"]), t(s["tcw_pred"]), s["tlast_kp"],
+            t(s["last_pid"]), t(s["local_ids"]), t(s["local_sel"]), 1.0, *_pt_torch(s),
+            TCAM, SF, NL)
+
+
+def _assert_same_out(a, b):
+    for name, x in tk._out_tensors(a).items():
+        assert torch.equal(x, tk._out_tensors(b)[name]), name
+
+
+def test_capture_form_reads_nothing_on_the_host(staged):
+    """`_fused_track_core` in its capture form (the form a CUDA graph holds)
+    under a guard that refuses every host read of a tensor: it passes and
+    gives the eager form's outputs bit for bit; the eager form, which reads
+    the widening's count and the LM's convergence flags, is refused."""
+    args = _core_args(staged)
+    eager = tk._fused_track_core(*args, host_reads=True)
+    with no_host_reads():
+        captured = tk._fused_track_core(*args, host_reads=False)
+        with pytest.raises(HostRead):
+            tk._fused_track_core(*args, host_reads=True)
+    _assert_same_out(captured, eager)
+    assert int(captured.n_inliers) > 150
+
+
+def test_fused_rgbd_program_gives_the_eager_outputs(staged):
+    """On the CPU `_fused_rgbd_program(...)` is the eager step: the frame
+    build and `_fused_track_core` on the same inputs give its outputs, and
+    `fused_frame_step` keeps the program in the caller's dict."""
+    s = staged
+    rest = (t(s["last_pid"]), t(s["local_ids"]), t(s["local_sel"]), 1.0, *_pt_torch(s))
+    imgs = (t(s["gray"]), t(s["depth_img"]))
+    prog = tk._fused_rgbd_program(s["extractor"], TCAM, SF, NL)
+    out = prog(*imgs, t(s["tcw_pred"]), s["tlast_kp"], *rest)
+    kp, ur, depth = tframe._rgbd_build(s["extractor"], TCAM, *imgs)
+    _assert_same_out(out, tk._fused_track_core(
+        kp, ur, depth, t(s["tcw_pred"]), s["tlast_kp"], *rest, TCAM, SF, NL))
+    programs = {}
+    again = tk.fused_frame_step(("rgbd", imgs), s["extractor"], TCAM, SF, NL,
+                                t(s["tcw_pred"]), s["tlast_kp"], *rest, programs=programs)
+    _assert_same_out(again, out)
+    assert isinstance(programs["rgbd"], tk.FrameProgram) and programs["rgbd"].captures == 0

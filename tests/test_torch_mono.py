@@ -465,9 +465,9 @@ def _track_frame(tracker, gray, prepare=None):
         counts.update(mm=int(fetched[4]), mm_in=int(fetched[5]), n_in=int(fetched[6]))
         return apply_(rec, fetched)
 
-    def spy_step(*a):
+    def spy_step(*a, **kw):
         staged["last_pid"] = n(a[7]).copy()
-        return step(*a)
+        return step(*a, **kw)
     fork._fused_apply = spy_apply
     mod.fused_frame_step = spy_step
     try:

@@ -124,3 +124,60 @@ def test_make_pose_obs_matches_jax(rng):
     for x, y in zip(b, a):
         np.testing.assert_allclose(n(x), n(y), rtol=1e-6)
     assert (tpo.CHI2_MONO, tpo.CHI2_STEREO) == (jpo.CHI2_MONO, jpo.CHI2_STEREO)
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _lm_steps(monkeypatch, fn):
+    """-> (fn(), the LM steps it took): each step retracts the pose once."""
+    steps = [0]
+    retract = tpo.se3.retract
+
+    def counting(*a, **k):
+        steps[0] += 1
+        return retract(*a, **k)
+
+    monkeypatch.setattr(tpo.se3, "retract", counting)
+    out = fn()
+    monkeypatch.setattr(tpo.se3, "retract", retract)
+    return out, steps[0]
+
+
+# one round each: (problem, LM steps per round, how the early-stop form ends)
+STOP_CASES = {
+    # converges: the proposed step falls below noise after a few steps
+    "converges": (dict(noise=0.0, init_scale=0.1), 10, "below 10"),
+    # a non-finite observation makes every cost NaN, so every step is
+    # rejected and the damping grows 4x a step: at least 1e6 at step 15
+    "damping_maxed": (dict(noise=0.5, nan_obs=True), 20, 15),
+    # 30 % outliers and a far start: no step of the round converges
+    "all_steps": (dict(noise=0.5, init_scale=0.3, outlier_frac=0.3), 10, 10),
+}
+
+
+@pytest.mark.parametrize("name", list(STOP_CASES))
+def test_capture_form_equals_early_stop_bit_for_bit(monkeypatch, name):
+    """`stop_early=False` (every step run, the flag carried on the device and
+    the pose, damping and cost frozen once it is set: the form a CUDA graph
+    captures) gives `stop_early=True`'s pose, inlier mask and count bit for
+    bit, in one round that stops early for each reason and over the full
+    four-round schedule."""
+    kw, iters, ends = STOP_CASES[name]
+    kw = dict(kw)
+    nan_obs = kw.pop("nan_obs", False)
+    _, tcw0, o = make_problem(1, **kw)
+    if nan_obs:
+        o["uv"][0, 0] = np.nan
+    for rounds in (1, 4):
+        (early, steps) = _lm_steps(monkeypatch, lambda: tpo.pose_optimization(
+            t(tcw0), torch_obs(o), TCAM, rounds=rounds, iters=iters, stop_early=True))
+        (full, all_steps) = _lm_steps(monkeypatch, lambda: tpo.pose_optimization(
+            t(tcw0), torch_obs(o), TCAM, rounds=rounds, iters=iters, stop_early=False))
+        assert all_steps == rounds * iters
+        if rounds == 1:
+            assert steps < 10 if ends == "below 10" else steps == ends
+        for a, b in zip(early, full):
+            assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    assert tpo.host_may_read(t(tcw0))

@@ -3,6 +3,7 @@ inputs go through a JAX function of orbslam2_tpu and its PyTorch counterpart
 in orbslam2_tpu_torch (device "cpu"), and the outputs are compared as numpy
 arrays."""
 import concurrent.futures
+import contextlib
 import copy
 import functools
 import threading
@@ -123,6 +124,41 @@ def beside(first, second):
         a = pool.submit(first)
         b = second()
         return a.result(), b
+
+
+class HostRead(AssertionError):
+    """A tensor's value was read by the host inside ``no_host_reads``."""
+
+
+_HOST_READS = ("__bool__", "__int__", "__float__", "item", "tolist", "numpy")
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """Inside the context every read of a tensor's value by Python code
+    raises HostRead: ``Tensor.__bool__`` (an ``if`` on a tensor),
+    ``__int__``, ``__float__``, ``item``, ``tolist`` and ``numpy``. On a card
+    each of these is a host synchronisation, which a CUDA graph capture
+    refuses; a step that passes under the guard on the CPU makes none of
+    them. Reads inside C++ operators are not seen (a capture on the card
+    refuses those)."""
+    saved = {name: torch.Tensor.__dict__.get(name) for name in _HOST_READS}
+
+    def refuse(name):
+        def read(*_a, **_k):
+            raise HostRead(f"Tensor.{name} inside no_host_reads")
+        return read
+
+    for name in _HOST_READS:
+        setattr(torch.Tensor, name, refuse(name))
+    try:
+        yield
+    finally:
+        for name, attr in saved.items():
+            if attr is None:
+                delattr(torch.Tensor, name)
+            else:
+                setattr(torch.Tensor, name, attr)
 
 
 @functools.lru_cache(maxsize=None)
