@@ -41,8 +41,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             those found through a slot handed out again since
             (reused_slot_ids) and those lost to a slot handed out twice
             (replacements_lost), read and not gated, as in phases 12, 14
-            and 17
-6. ba       the last local-BA problem that drive's mapper solved, solved
+            and 17. Fails unless every local BA of the drive ran as one
+            replay of the mapper's solve program (its graphs captured once
+            per padded size; phases 8, 9 and 12 hold the loop closer's
+            essential-graph and global-BA programs to the same rule)
+6. ba       the last local-BA problem that drive's mapper solved (caught at
+            the mapper's solve program), solved
             again on the card and on the CPU in float64, as the mapper
             stages it: largest pose and point differences and the share of
             observations that change class; then the same problem in float32
@@ -61,9 +65,17 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             consistency 2, paced as the verify recipe paces it (a frame
             waits while two keyframes are queued); fails unless every frame
             is tracked, a loop is closed, a global BA is applied and the ATE
-            is under 0.15 m; prints the loop-closing stage times, the GBA's
-            and the longest tracker frame around the loop (the loop closer
-            holds the map lock while it corrects). A full-width drive that closes no loop says so and the
+            is under 0.15 m; prints the loop-closing stage times, the GBA's,
+            the solve programs' captures and replays, and the longest
+            tracker frame around the loop (the loop closer holds the map
+            lock while it corrects). Between frames the drive waits for the
+            whole device (torch.cuda.synchronize() after every frame, a
+            torch.profiler started and stopped after every fifth), as a
+            caller may, while the worker and the GBA thread capture; fails
+            unless the local-BA and essential-graph programs captured on the
+            mapping worker's thread and the GBA program on the GBA thread.
+            Phases 9, 12 and 17c print each essential graph's edges and each
+            global BA's observations, real and padded, beside the captures A full-width drive that closes no loop says so and the
             phase runs again at the verify geometry (320x240 / 800 / 4)
 10. reloc   the phase-9 tracker set LOST without a motion model tracks a
             mapped frame again: through the keyframe database (EPnP runs),
@@ -121,10 +133,12 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             through save_map and load_map into a new system with the
             vocabulary, in localization mode, relocalizing a mapped frame
             through the keyframe database within 0.1 m; global_bundle_adjust
-            on phase 14's final map with the first keyframe unchanged within
-            1e-6, its time and the ATE before and after
+            on phase 14's final map through the system's GBA program with
+            the first keyframe unchanged within 1e-6, its time and the ATE
+            before and after
 16. backlog the mapping worker made to fall behind (a keyframe every second
-            frame, each local-BA solve held 0.5 s longer, the vocabulary,
+            frame, each call of the mapper's local-BA program held 0.5 s
+            longer, the vocabulary,
             frames back to back) and its four paths counted one by one: the
             correction_gen drop, interrupt_ba, the backlog skip and the
             stage-conflict rerun; a path the drive did not reach is provoked
@@ -251,12 +265,40 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             tracker captured and replayed; each replay adds its one describe
             launch to the kernel's count, so every launch gate counts what it
             counted before
+22. solve programs  local BA, the essential graph and global BA as
+            programs (backend/solve_program.py: the counterpart of the JAX
+            package's jitted solves, whose LM loops are lax.scan over one
+            step): phase 6's local-BA problem and phase 11's essential-graph
+            and global-BA problems, each through a new program on the card,
+            captured once and replayed 5 times; every result held to the
+            eager solve on the card (camera centres within 1e-9 m; index_add_
+            sums by atomics) and to the CPU (within 1e-6 m); one replay
+            traced (its graph launches, exactly a reset, each phase's
+            prologue, steps and epilogue, or the setup and 20 steps; the
+            kernels inside them; at most 40 kernels launched by the host);
+            512 sentinel tensors of 0.5-64 KiB allocated after the capture
+            must come out of the replays untouched (a buffer the program
+            dropped while its graphs still write it would be among them);
+            capture, replay and eager ms, the eager solve's host launches,
+            and the peak memory of the program's buffers and graph pool;
+            then two global BAs at once from two threads (one on a stream of
+            its own) through one program, each equal to its own eager solve;
+            the replay is traced three times (the kernels inside one graph,
+            counted each time); phase 11's global BA unpadded and padded to
+            the buckets of growth 2 and 4, each through a new program
+            (capture, replay and device-busy ms) within 1e-9 m of the
+            unpadded solve
+
+Every phase runs under a watchdog (faulthandler): a phase that has not
+returned within 600 s, or by 1150 s after the start, prints the stack of
+every thread and exits with code 1.
 
 Then one JSON line {"kernels": [...]} (phase 3's numbers and phase 5's
 launches at its top level, each replay of a frame program counted, phase
 13's 16-level launch and phase 12's launches under "stereo_16_levels",
 phase 19b's 16-level launch under "multi_session_16_levels", every drive's
-launches under "launches_by_path", phase 21 under "frame_programs"), the
+launches under "launches_by_path", phase 21 under "frame_programs", phase 22
+under "solve_programs"), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -264,6 +306,8 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import dataclasses
+import faulthandler
+import gc
 import json
 import os
 import subprocess
@@ -275,9 +319,10 @@ import time
 import numpy as np
 import torch
 from scipy.spatial.transform import Rotation
+from torch.profiler import ProfilerActivity, profile
 
 from orbslam2_tpu_torch.backend import ba
-from orbslam2_tpu_torch.backend import pose_graph
+from orbslam2_tpu_torch.backend import pose_graph, solve_program
 from orbslam2_tpu_torch.frontend import kernels, local_mapping, loop_closing
 from orbslam2_tpu_torch.frontend import tracking as tracking_mod
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
@@ -333,6 +378,7 @@ BA_CLASS_CHANGE_MAX = 0.01
 
 N_FRAMES_PLACE = 100      # the place-recognition drive (phase 9)
 PLACE_KF_EVERY = 4        # its keyframe cadence
+PLACE_PROFILE_EVERY = 5   # a profiler started and stopped after every fifth frame
 PLACE_ATE_MAX_M = 0.15
 RELOC_FRAME = 50          # the mapped frame phase 10 relocalizes on
 RELOC_TOL_M = 0.10
@@ -764,22 +810,88 @@ def drive_tracker_alone(cfg, frames, seq) -> dict:
 
 
 class BACapture:
-    """Keeps the last problem the local mapper hands to bundle_adjust (on the
-    worker's thread) while the context is open."""
+    """Keeps the last problem the local mapper hands to its local-BA program
+    (on the worker's thread) while the context is open."""
+
+    def __init__(self, mapper):
+        self.mapper = mapper
 
     def __enter__(self):
-        self.solve = local_mapping.ba.bundle_adjust
+        self.program = self.mapper.ba_program
         self.last = None
 
         def capture(problem, cam, point_fixed=None, **kw):
             self.last = (problem, point_fixed)
-            return self.solve(problem, cam, point_fixed=point_fixed, **kw)
+            return self.program(problem, cam, point_fixed=point_fixed, **kw)
 
-        local_mapping.ba.bundle_adjust = capture
+        self.mapper.ba_program = capture
         return self
 
     def __exit__(self, *exc):
-        local_mapping.ba.bundle_adjust = self.solve
+        self.mapper.ba_program = self.program
+
+
+# graph launches one solve replays: a reset, then each phase's prologue,
+# steps and epilogue (local BA (5, 10), global BA (5, 5)); the essential
+# graph's setup and 20 steps
+GRAPHS_PER_SOLVE = {"local_ba": 1 + (1 + 5 + 1) + (1 + 10 + 1), "gba": 1 + 2 * (1 + 5 + 1),
+                    "essential_graph": 1 + 20}
+
+
+def solve_programs(system) -> dict:
+    """A system's solve programs by name: the local mapper's local BA and,
+    with a loop closer, its essential graph and global BA."""
+    progs = {"local_ba": system.local_mapper.ba_program}
+    if system.loop_closer is not None:
+        progs.update(essential_graph=system.loop_closer.eg_program,
+                     gba=system.loop_closer.gba_program)
+    return progs
+
+
+def check_solve_programs_ran(name, system, solves: dict, threads=None) -> dict:
+    """Prints each solve program's captures, replays, graph launches, capture
+    ms, the ms each capture waited for a caller's call and the thread it
+    ran on, the longest and the summed wait of its replays' launches, and with a loop closer each essential graph's edges and each
+    global BA's observations (real / padded), which choose the key; fails
+    unless every solve of the drive (`solves`: name -> count) ran as one
+    replay of its program with its graphs, and, with `threads` (name ->
+    thread name), unless each of those programs captured on that thread."""
+    out = {}
+    for prog_name, prog in solve_programs(system).items():
+        out[prog_name] = dict(captures=prog.captures, replays=prog.replays,
+                              graph_launches=prog.graph_launches,
+                              capture_ms=[round(x, 1) for x in prog.capture_ms],
+                              held_ms=[round(x, 1) for x in prog.held_ms],
+                              capture_threads=list(prog.capture_threads),
+                              replay_held_ms_max=max(prog.replay_held_ms, default=0.0),
+                              replay_held_ms_total=sum(prog.replay_held_ms))
+    print(f"  solve programs (captures / replays / graph launches; capture ms, ms held "
+          f"for a caller's call, thread; replays' launches held for a call, ms max / "
+          f"total): " + "; ".join(
+              f"{k} {v['captures']} / {v['replays']} / {v['graph_launches']}; "
+              f"{v['capture_ms']}, {v['held_ms']}, {v['capture_threads']}; "
+              f"{v['replay_held_ms_max']:.1f} / {v['replay_held_ms_total']:.1f}"
+              for k, v in out.items()), flush=True)
+    if system.loop_closer is not None:
+        sizes = system.loop_closer.solve_sizes
+        out["sizes"] = {k: [list(x) for x in v] for k, v in sizes.items()}
+        print(f"  solve sizes (real, padded): essential-graph edges "
+              f"{sizes['essential_graph']}, global-BA observations {sizes['gba']}",
+              flush=True)
+    for prog_name, n_solves in solves.items():
+        c = out[prog_name]
+        want = n_solves * GRAPHS_PER_SOLVE[prog_name]
+        if c["replays"] != n_solves or c["graph_launches"] != want or \
+                (n_solves and not 1 <= c["captures"] <= n_solves):
+            fail(f"{name}: the {prog_name} program replayed {c['replays']} solves with "
+                 f"{c['graph_launches']} graph launches and {c['captures']} captures; the "
+                 f"drive solved {n_solves} ({want} graph launches)")
+    for prog_name, thread in (threads or {}).items():
+        if not out[prog_name]["captures"] or \
+                set(out[prog_name]["capture_threads"]) != {thread}:
+            fail(f"{name}: the {prog_name} program captured on "
+                 f"{out[prog_name]['capture_threads']}, expected {thread}")
+    return out
 
 
 def drive_mapped(name, cfg, frames, seq, what):
@@ -796,7 +908,7 @@ def drive_mapped(name, cfg, frames, seq, what):
         fail(f"{name}: the mapping worker is not running on the card")
     tracker, mapper = system.tracker, system.local_mapper
 
-    with BACapture() as captured:
+    with BACapture(mapper) as captured:
         d = drive(name, system.track_rgbd, tracker, frames, seq)
         t0 = time.perf_counter()
         if not system.wait_mapping_idle(300):   # raises the worker's exception
@@ -818,6 +930,8 @@ def drive_mapped(name, cfg, frames, seq, what):
     describe(name, tracker, d, ate, len(frames))
     if c["ba_applied"] < 1:
         fail(f"{name}: no local BA was applied")
+    programs = check_solve_programs_ran(name, system, {"local_ba": c["ba_applied"]
+                                                       + c["ba_dropped"]})
     if mapper.stats.summary().get("tri_dev", {}).get("n", 0) < 1:
         fail(f"{name}: no triangulation search ran on the card")
     system.shutdown()                # joins the worker; raises its exception
@@ -837,7 +951,8 @@ def drive_mapped(name, cfg, frames, seq, what):
                 remapped_ids=d["remapped_ids"], reused_slot_ids=d["reused_slot_ids"],
                 replacements_lost=d["replacements_lost"],
                 tracker_stage_median_ms={k: v["median_ms"] for k, v in
-                                         tracker.stats.summary().items()}), system, captured.last
+                                         tracker.stats.summary().items()},
+                solve_programs=programs), system, captured.last
 
 
 def drive_main_path(cfg, frames, seq):
@@ -1035,37 +1150,38 @@ def check_mapping_searches(system, cam, orb_cfg) -> dict:
 
 class LoopCapture:
     """Keeps the last essential-graph and global-BA problems the loop closer
-    solves (the GBA on its own thread) and every BoW transform the tracker
-    makes, while the context is open."""
+    hands to its programs (the GBA on its own thread) and every BoW
+    transform the tracker makes, while the context is open."""
+
+    def __init__(self, closer):
+        self.closer = closer
 
     def __enter__(self):
-        self.eg_solve = loop_closing.pose_graph.optimize_essential_graph
-        self.gba_solve = loop_closing.ba.bundle_adjust_pcg
+        closer = self.closer
+        self.eg_program, self.gba_program = closer.eg_program, closer.gba_program
         self.word_ids = tracking_mod.Tracker._word_ids
         self.eg = self.gba = None
         self.words = []
 
         def eg(*args, **kw):
             self.eg = (args, kw)
-            return self.eg_solve(*args, **kw)
+            return self.eg_program(*args, **kw)
 
         def gba(problem, cam, **kw):
             self.gba = (problem, kw)
-            return self.gba_solve(problem, cam, **kw)
+            return self.gba_program(problem, cam, **kw)
 
         def words(tracker, fr):
             out = self.word_ids(tracker, fr)
             self.words.append((fr.kp.desc, fr.kp.valid, out))
             return out
 
-        loop_closing.pose_graph.optimize_essential_graph = eg
-        loop_closing.ba.bundle_adjust_pcg = gba
+        closer.eg_program, closer.gba_program = eg, gba
         tracking_mod.Tracker._word_ids = words
         return self
 
     def __exit__(self, *exc):
-        loop_closing.pose_graph.optimize_essential_graph = self.eg_solve
-        loop_closing.ba.bundle_adjust_pcg = self.gba_solve
+        self.closer.eg_program, self.closer.gba_program = self.eg_program, self.gba_program
         tracking_mod.Tracker._word_ids = self.word_ids
 
 
@@ -1118,14 +1234,24 @@ def place_drive(name, cam, orb_cfg, voc, what):
             time.sleep(0.005)
 
     frame_log = []    # per frame: its milliseconds, loops closed when it returned
+    waits = {"synchronize": 0, "profiler": 0}
 
     def track(gray, depth, timestamp):
         t_frame = time.perf_counter()
         tcw = system.track_rgbd(gray, depth, timestamp)
         frame_log.append(((time.perf_counter() - t_frame) * 1e3, closer.n_loops_closed))
+        # between frames a caller may wait for the whole device: the
+        # worker's captures and graph launches never run then
+        # (utils/graph_capture.py)
+        torch.cuda.synchronize()
+        waits["synchronize"] += 1
+        if len(frame_log) % PLACE_PROFILE_EVERY == 0:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                torch.cuda.synchronize()    # the profiler's stop waits too
+            waits["profiler"] += 1
         return tcw
 
-    with LoopCapture() as captured:
+    with LoopCapture(closer) as captured:
         d = drive(name, track, system.tracker, frames, seq, pace)
         t0 = time.perf_counter()
         if not system.wait_mapping_idle(600):    # raises a failed stage's exception
@@ -1150,8 +1276,18 @@ def place_drive(name, cam, orb_cfg, voc, what):
     print(closer.stats.report(), flush=True)
     print("  mapper stages, loop_closing included:", flush=True)
     print(system.local_mapper.stats.report(), flush=True)
+    mc = system.local_mapper.counts
+    programs = check_solve_programs_ran(name, system, {
+        "local_ba": mc["ba_applied"] + mc["ba_dropped"],
+        "essential_graph": closer.n_loops_closed,
+        "gba": closer.n_gba_applied + closer.n_gba_superseded},
+        threads={"local_ba": "mapping-worker", "essential_graph": "mapping-worker",
+                 "gba": "gba-worker"})
+    print(f"  between frames: torch.cuda.synchronize() {waits['synchronize']} times, a "
+          f"torch.profiler started and stopped {waits['profiler']} times, while the "
+          f"worker's and the GBA thread's programs captured (above)", flush=True)
     entries = dict(
-        geometry=what, launches=d["launches"], tracked=d["tracked"], ate_m=ate,
+        geometry=what, device_waits_between_frames=waits, launches=d["launches"], tracked=d["tracked"], ate_m=ate,
         loops_closed=closer.n_loops_closed, gba_applied=closer.n_gba_applied,
         gba_superseded=closer.n_gba_superseded, correction_gen=system.map.correction_gen,
         local_ba_dropped=system.local_mapper.counts["ba_dropped"],
@@ -1163,7 +1299,9 @@ def place_drive(name, cam, orb_cfg, voc, what):
         loop_closer_stage_total_s={k: v["total_s"] for k, v in lc_stats.items()},
         loop_closing_stage_ms=mapper_stats.get("loop_closing", {}),
         longest_frame_at_loop=stall,
-        gba_solve_ms=lc_stats.get("gba_solve", {}).get("median_ms"))
+        gba_solve_ms=lc_stats.get("gba_solve", {}).get("median_ms"),
+        mapper_stage_median_ms={k: v["median_ms"] for k, v in mapper_stats.items()},
+        solve_programs=programs)
     return entries, system, captured, seq, frames
 
 
@@ -1478,6 +1616,11 @@ def drive_stereo_kitti():
     print(system.local_mapper.stats.report(), flush=True)
     print("  loop closer (worker thread; gba_solve on its own thread):", flush=True)
     print(closer.stats.report(), flush=True)
+    mc = system.local_mapper.counts
+    programs = check_solve_programs_ran("stereo", system, {
+        "local_ba": mc["ba_applied"] + mc["ba_dropped"],
+        "essential_graph": closer.n_loops_closed,
+        "gba": closer.n_gba_applied + closer.n_gba_superseded})
     if closer.n_loops_closed < 1:
         fail("stereo: no loop was closed")
     if ate >= STEREO_ATE_MAX_M:
@@ -1498,7 +1641,7 @@ def drive_stereo_kitti():
         tracker_stage_median_ms={k: v["median_ms"] for k, v in tr_stats.items()},
         mapper_stage_median_ms={k: v["median_ms"] for k, v in ms_stats.items()},
         loop_closer_stage_median_ms={k: v["median_ms"] for k, v in lc.items()},
-        sm_clock_mhz_median=float(np.median(d["mhz"])))
+        sm_clock_mhz_median=float(np.median(d["mhz"])), solve_programs=programs)
     return entries, system, seq, frames
 
 
@@ -1921,6 +2064,8 @@ def check_global_ba(system, seq) -> dict:
     poses = m.kf_pose.copy()
     ids = m.keyframe_ids()
     change = m.change_index
+    program = system._gba_program
+    replays = program.replays
     t0 = time.perf_counter()
     system.global_bundle_adjust()
     torch.cuda.synchronize()
@@ -1930,8 +2075,11 @@ def check_global_ba(system, seq) -> dict:
     moved = float(np.abs(m.kf_pose[ids] - poses[ids]).max())
     print(f"[global BA] on phase 14's map ({len(ids)} keyframes, {m.n_points()} points): "
           f"{ms:.1f} ms, first keyframe moved {gauge:.2e} (limit {GAUGE_TOL}), the others up "
-          f"to {moved:.2e}; ATE-RMSE {ate_before:.4f} m before, {ate_after:.4f} m after",
-          flush=True)
+          f"to {moved:.2e}; ATE-RMSE {ate_before:.4f} m before, {ate_after:.4f} m after; "
+          f"through the system's GBA program ({program.replays - replays} replay, "
+          f"{program.captures} capture, {program.graph_launches} graph launches)", flush=True)
+    if program.replays != replays + 1:
+        fail("global BA: the solve did not run through the GBA program")
     if gauge > GAUGE_TOL:
         fail(f"global BA: the first keyframe moved by {gauge}")
     if m.change_index == change:
@@ -1956,7 +2104,7 @@ def drive_backlog(cam, orb_cfg, frames, seq, voc) -> dict:
     cfg = defaults_config(cam, orb_cfg, force_kf_every=BACKLOG_KF_EVERY, profile_stages=True)
     system = SLAMSystem(cfg, Sensor.RGBD, vocabulary=voc)
     mapper, tracker = system.local_mapper, system.tracker
-    solve = local_mapping.ba.bundle_adjust
+    solve = mapper.ba_program
     queue_max = [0]
 
     def slow_solve(*a, **k):
@@ -1967,13 +2115,13 @@ def drive_backlog(cam, orb_cfg, frames, seq, voc) -> dict:
     def pace():
         queue_max[0] = max(queue_max[0], system.mapping_worker.queue_size())
 
-    local_mapping.ba.bundle_adjust = slow_solve
+    mapper.ba_program = slow_solve
     try:
         d = drive("backlog", system.track_rgbd, tracker, frames, seq, pace, pipelined=True)
         if not system.wait_mapping_idle(300):
             fail("backlog: the mapping worker did not become idle within 300 s")
     finally:
-        local_mapping.ba.bundle_adjust = solve
+        mapper.ba_program = solve
     natural = {path: mapper.counts[key] for path, key in BACKLOG_PATHS.items()}
     ate = check_trajectory("backlog", tracker, seq, d)
     m = system.map
@@ -1992,11 +2140,11 @@ def drive_backlog(cam, orb_cfg, frames, seq, voc) -> dict:
                 m.correction_gen += 1    # a loop correction lands mid-solve
             return out
 
-        local_mapping.ba.bundle_adjust = solve_during_correction
+        mapper.ba_program = solve_during_correction
         try:
             again("correction_gen drop")
         finally:
-            local_mapping.ba.bundle_adjust = solve
+            mapper.ba_program = solve
     if not natural["interrupt_ba"]:
         mapper.interrupt_ba = True       # the tracker asked for a keyframe
         again("interrupt_ba")
@@ -2354,6 +2502,11 @@ def drive_mono_loop(cam, orb_cfg, voc):
           f"in flight {d['revalidated_frames']}", flush=True)
     print("  loop closer stages:", flush=True)
     print(closer.stats.report(), flush=True)
+    mc = system.local_mapper.counts
+    out["solve_programs"] = check_solve_programs_ran("mono loop", system, {
+        "local_ba": mc["ba_applied"] + mc["ba_dropped"],
+        "essential_graph": closer.n_loops_closed,
+        "gba": closer.n_gba_applied + closer.n_gba_superseded})
     if not full_scale <= pre_scale + 1e-3:
         fail("mono loop: the whole trajectory's scale error grew over the loop")
     if not win_scale <= pre_scale * 1.5 + 1e-3:
@@ -3319,7 +3472,6 @@ def staged_frame_inputs(tracker: Tracker, images) -> tuple:
 def check_frame_program(name, make_program, tracker, images) -> dict:
     """Phase 21 for one sensor: the program captured on staged inputs, one
     replay against the eager step on the same inputs, ten replays traced."""
-    from torch.profiler import ProfilerActivity, profile
 
     from orbslam2_tpu_torch.tools import frame_step_ab
 
@@ -3441,6 +3593,314 @@ def check_frame_programs(rgbd_system, seq, stereo_system, stereo_seq, stereo_fra
     return out
 
 
+SOLVE_PROGRAM_REPLAYS = 5        # replays held to the eager solve (phase 22)
+PROGRAM_EAGER_TOL_M = 1e-9       # a replay against the eager solve on the card
+PROGRAM_HOST_LAUNCHES_MAX = 40   # kernels the host launches a solve besides its graphs
+TRACED_REPLAYS = 3
+SENTINEL_BYTE = 0x5A
+
+
+def _to(x, dev):
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, ba.BAProblem):
+        return ba.BAProblem(*(t.to(dev) for t in x))
+    return x
+
+
+def check_solve_program(name, program, eager, args, kw, poses_of, smi_line) -> dict:
+    """Phase 22 for one solve: a new program captures its graphs on the
+    problem a drive solved, then replays it SOLVE_PROGRAM_REPLAYS times;
+    every result is held to the eager solve on the card (camera centres
+    within PROGRAM_EAGER_TOL_M: index_add_ sums by atomics, in another order
+    each run) and to the eager solve on the CPU (phases 6 and 11's limit);
+    one replay and one eager solve are traced."""
+
+    from orbslam2_tpu_torch.tools import frame_step_ab
+
+    sync = torch.cuda.synchronize
+    cpu = poses_of(eager(*(_to(a, "cpu") for a in args),
+                         **{k: _to(v, "cpu") for k, v in kw.items()}))
+    eager(*args, **kw)                                        # warm-up
+    eager_ms = []
+    for _ in range(2):
+        out, ms = _timed(lambda: eager(*args, **kw), sync)
+        eager_ms.append(ms)
+    ref = poses_of(out)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    first, first_ms = _timed(lambda: program(*args, **kw), sync)
+    graph_mem = torch.cuda.max_memory_allocated() - base_mem
+    # blocks a dropped buffer of the program would have freed go to these
+    # sentinels; a replay that still wrote such a buffer would spoil them
+    gc.collect()
+    sentinels = [torch.full((512 * k,), SENTINEL_BYTE, dtype=torch.uint8, device=CARD)
+                 for k in (1, 2, 4, 8, 16, 32, 64, 128) for _ in range(64)]
+    results, replay_ms = [poses_of(first)], []
+    for _ in range(SOLVE_PROGRAM_REPLAYS):
+        out, ms = _timed(lambda: program(*args, **kw), sync)
+        results.append(poses_of(out))
+        replay_ms.append(ms)
+    spoiled = int(torch.cat(sentinels).ne(SENTINEL_BYTE).sum())
+    if spoiled:
+        fail(f"solve programs: {name}: the replays wrote {spoiled} bytes of memory "
+             f"allocated after the capture")
+    if not all(np.isfinite(r).all() for r in results):
+        fail(f"solve programs: {name}: a replay is not finite")
+    d_eager = max(_centre_diff(r, ref) for r in results)
+    d_cpu = max(_centre_diff(r, cpu) for r in results)
+    d_eager_cpu = _centre_diff(ref, cpu)
+    n_graphs = GRAPHS_PER_SOLVE[name]
+    if program.captures != 1 or program.replays != SOLVE_PROGRAM_REPLAYS + 1 or \
+            program.graph_launches != n_graphs * (SOLVE_PROGRAM_REPLAYS + 1):
+        fail(f"solve programs: {name}: {program.captures} captures, {program.replays} "
+             f"replays, {program.graph_launches} graph launches")
+    traced = []        # one replay in each of TRACED_REPLAYS profiler sessions
+    for _ in range(TRACED_REPLAYS):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            program(*args, **kw)
+            sync()
+        traced.append(frame_step_ab.window_counts(trace))
+    c = traced[0]
+    kernels_traced = [t["graph_kernels"] for t in traced]
+    eager_act = device_activity(lambda: eager(*args, **kw))
+    print(f"  {name}: capture {program.capture_ms[0]:.1f} ms of graphs, the first solve "
+          f"{first_ms:.1f} ms (its warm-up, capture and replay); a replay median "
+          f"{np.median(replay_ms):.2f} ms (min {min(replay_ms):.2f}) against the eager solve "
+          f"{min(eager_ms):.2f} ms (host clock around a synchronised call); camera centres: "
+          f"replays vs the eager solve on the card up to {d_eager:.3e} m (limit "
+          f"{PROGRAM_EAGER_TOL_M}), vs the CPU up to {d_cpu:.3e} m (limit "
+          f"{LOOP_TRANSLATION_TOL_M}), the eager card vs the CPU {d_eager_cpu:.3e} m; one "
+          f"replay traced {TRACED_REPLAYS} times: {c['graphs']} graph launches, kernels inside "
+          f"them {kernels_traced} (one graph each time: a count that varies is the trace "
+          f"dropping records), {c['launches']} kernels launched by the host, device busy "
+          f"{c['device_ms']:.2f} ms; the eager solve: {eager_act[0]} kernels launched by "
+          f"the host, busy {eager_act[2]:.2f} of {eager_act[3]:.2f} ms; peak memory "
+          f"{graph_mem / 2**20:.0f} MiB above the problem (buffers and the graphs' pool) "
+          f"| {smi_line}", flush=True)
+    for t in traced:
+        if t["graphs"] != n_graphs or t["launches"] > PROGRAM_HOST_LAUNCHES_MAX:
+            fail(f"solve programs: {name}: a traced replay launched {t['graphs']} graphs "
+                 f"(expected {n_graphs}) and {t['launches']} kernels from the host (at most "
+                 f"{PROGRAM_HOST_LAUNCHES_MAX})")
+    if d_eager > PROGRAM_EAGER_TOL_M:
+        fail(f"solve programs: {name}: a replay is {d_eager} m from the eager solve")
+    if d_cpu > LOOP_TRANSLATION_TOL_M:
+        fail(f"solve programs: {name}: a replay is {d_cpu} m from the CPU")
+    return dict(capture_ms=program.capture_ms[0], first_solve_ms=first_ms,
+                replay_ms=float(np.median(replay_ms)), replay_ms_min=min(replay_ms),
+                eager_ms=min(eager_ms), centre_diff_eager_m=d_eager, centre_diff_cpu_m=d_cpu,
+                eager_vs_cpu_m=d_eager_cpu, graph_launches_per_solve=c["graphs"],
+                kernels_per_solve=kernels_traced, host_launches_per_solve=c["launches"],
+                replay_device_ms=c["device_ms"], eager_host_launches=eager_act[0],
+                eager_device_busy_ms=eager_act[2], eager_wall_ms=eager_act[3],
+                peak_memory_above_problem_bytes=int(graph_mem))
+
+
+def check_concurrent_gbas(problem, kw, cam) -> dict:
+    """Phase 22: two global BAs at once from two threads through one program
+    (the second on a stream of its own, on a copy of the problem with its
+    points moved by up to a centimetre): each equal to its own eager solve."""
+    rng = np.random.default_rng(22)
+    other = problem._replace(points=problem.points + torch.from_numpy(
+        rng.uniform(-0.01, 0.01, tuple(problem.points.shape))).to(problem.points))
+    problems = [problem, other]
+    program = solve_program.BundleAdjustProgram(problem.poses.device, pcg=True)
+    program(problem, cam, **kw)                               # capture
+    eager = [ba.bundle_adjust_pcg(p, cam, **kw).poses.cpu().numpy() for p in problems]
+    streams = [torch.cuda.current_stream(), torch.cuda.Stream()]
+    start = threading.Barrier(2)
+    got, errors = [None, None], []
+
+    def solve(i):
+        try:
+            with torch.cuda.stream(streams[i]):
+                start.wait()
+                got[i] = program(problems[i], cam, **kw).poses.cpu().numpy()
+        except Exception as e:            # raised below, on this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=solve, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"solve programs: two global BAs at once failed or hung: {errors}")
+    diffs = [_centre_diff(got[i], eager[i]) for i in range(2)]
+    apart = _centre_diff(eager[0], eager[1])
+    print(f"  two global BAs at once (two threads, two streams, one program): each against "
+          f"its own eager solve {diffs[0]:.3e} m and {diffs[1]:.3e} m (limit "
+          f"{PROGRAM_EAGER_TOL_M}); the two solves {apart:.3e} m apart; {program.replays} "
+          f"replays, {program.captures} capture", flush=True)
+    if max(diffs) > PROGRAM_EAGER_TOL_M:
+        fail(f"solve programs: concurrent global BAs differ from their eager solves {diffs}")
+    return dict(centre_diff_m=diffs, solves_apart_m=apart)
+
+
+def _repad_obs(problem, slots: int):
+    """`problem` with its valid observations (the first rows) padded to
+    `slots` rows as the loop closer pads them (camera 0, point 0, invalid)."""
+    n = int(problem.obs_valid.sum())
+    rows = {}
+    for f, fill in (("obs_cam", 0), ("obs_pt", 0), ("obs_uv", 0.0), ("obs_inv_sigma2", 1.0),
+                    ("obs_stereo", False), ("obs_valid", False)):
+        x = getattr(problem, f)
+        pad = torch.full((slots - n, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+        rows[f] = torch.cat([x[:n], pad])
+    return problem._replace(**rows)
+
+
+def check_gba_padding(problem, kw, cam, smi_line) -> dict:
+    """Phase 22: phase 11's global BA with its observations padded to the
+    bucket of each growth the loop closer could use (GBA_OBS_FLOOR times 2
+    or 4 to a power) and unpadded: each through a new program (capture ms,
+    replay ms, the replay's device-busy ms) and eagerly (device-busy ms),
+    every padding's cameras within PROGRAM_EAGER_TOL_M of the unpadded
+    solve's. The padding's cost per solve against a capture's, which a
+    finer growth makes more often."""
+    from orbslam2_tpu_torch.tools import frame_step_ab
+
+    n = int(problem.obs_valid.sum())
+    sizes = {"unpadded": n}
+    for growth in (2, 4):
+        sizes[f"growth {growth}"] = local_mapping.size_bucket(
+            n, loop_closing.GBA_OBS_FLOOR, growth)
+    out, ref = {}, None
+    for label, slots in sizes.items():
+        padded = _repad_obs(problem, slots)
+        program = solve_program.BundleAdjustProgram(CARD, pcg=True)
+        program(padded, cam, **kw)                             # capture
+        replay_ms = []
+        for _ in range(3):
+            res, ms = _timed(lambda: program(padded, cam, **kw), torch.cuda.synchronize)
+            replay_ms.append(ms)
+        poses = res.poses.cpu().numpy()
+        ref = poses if ref is None else ref
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            program(padded, cam, **kw)
+            torch.cuda.synchronize()
+        replay_dev = frame_step_ab.window_counts(trace)["device_ms"]
+        eager_busy = device_activity(lambda: ba.bundle_adjust_pcg(padded, cam, **kw))[2]
+        diff = _centre_diff(poses, ref)
+        out[label] = dict(slots=slots, capture_ms=program.capture_ms[0],
+                          replay_ms=float(np.median(replay_ms)), replay_device_ms=replay_dev,
+                          eager_device_busy_ms=eager_busy, centre_diff_unpadded_m=diff)
+        print(f"  global BA, {n} observations in {slots} slots ({label}): capture "
+              f"{program.capture_ms[0]:.1f} ms, a replay median {np.median(replay_ms):.2f} "
+              f"ms, device busy {replay_dev:.2f} ms a replay and {eager_busy:.2f} ms an eager "
+              f"solve; cameras vs unpadded {diff:.3e} m | {smi_line}", flush=True)
+        if diff > PROGRAM_EAGER_TOL_M:
+            fail(f"solve programs: the global BA padded to {slots} observation slots is "
+                 f"{diff} m from the unpadded solve")
+    return out
+
+
+EG_PADDED_EDGES = (256, 1024, 4096, 8192)
+
+
+def check_eg_padding(args, kw, smi_line) -> dict:
+    """Phase 22: phase 11's essential graph with its edges padded to each of
+    EG_PADDED_EDGES rows (the loop keyframe joined to itself, invalid), each
+    through a new program: capture ms, replay ms, the replay's device-busy
+    ms, the valid keyframes' camera centres within PROGRAM_EAGER_TOL_M of
+    the first size's. What a larger edge bucket costs a solve, against the
+    captures a smaller one makes as the map grows."""
+    from orbslam2_tpu_torch.tools import frame_step_ab
+
+    poses, kf_valid, kf_fixed, e_i, e_j, meas, e_valid = args
+    n = int(e_valid.sum())
+    anchor = int(e_i[n]) if n < len(e_i) else int(e_i[0])
+    valid = kf_valid.cpu().numpy()
+    out, ref = {}, None
+    for slots in EG_PADDED_EDGES:
+        if slots < n:
+            continue
+        pad = slots - n
+        fill = torch.full((pad,), anchor, dtype=e_i.dtype, device=e_i.device)
+        padded = (poses, kf_valid, kf_fixed, torch.cat([e_i[:n], fill]),
+                  torch.cat([e_j[:n], fill]),
+                  torch.cat([meas[:n], torch.eye(4, dtype=meas.dtype, device=meas.device)
+                             .expand(pad, 4, 4)]),
+                  torch.cat([e_valid[:n], torch.zeros(pad, dtype=torch.bool,
+                                                      device=e_valid.device)]))
+        program = solve_program.EssentialGraphProgram(CARD)
+        program(*padded, **kw)                                  # capture
+        replay_ms = []
+        for _ in range(3):
+            res, ms = _timed(lambda: program(*padded, **kw), torch.cuda.synchronize)
+            replay_ms.append(ms)
+        centres = res[0].cpu().numpy()[valid]
+        ref = centres if ref is None else ref
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            program(*padded, **kw)
+            torch.cuda.synchronize()
+        replay_dev = frame_step_ab.window_counts(trace)["device_ms"]
+        diff = _centre_diff(centres, ref)
+        out[str(slots)] = dict(edges=n, capture_ms=program.capture_ms[0],
+                               replay_ms=float(np.median(replay_ms)),
+                               replay_device_ms=replay_dev, centre_diff_m=diff)
+        print(f"  essential graph, {n} edges in {slots} slots: capture "
+              f"{program.capture_ms[0]:.1f} ms, a replay median {np.median(replay_ms):.2f} "
+              f"ms, device busy {replay_dev:.2f} ms a replay; cameras vs "
+              f"{EG_PADDED_EDGES[0]} slots {diff:.3e} m | {smi_line}", flush=True)
+        if diff > PROGRAM_EAGER_TOL_M:
+            fail(f"solve programs: the essential graph padded to {slots} edges is {diff} m "
+                 f"from the same graph in fewer slots")
+    return out
+
+
+def check_solve_programs(ba_staged, ba_cam, loop_captured, loop_cam, smi_line) -> dict:
+    """Phase 22: the local-BA problem of phase 6 and the essential-graph and
+    global-BA problems of phase 11 through new programs on the card."""
+    print("[solve programs] local BA, the essential graph and global BA as CUDA graphs of "
+          "their parts, the LM step replayed once per step", flush=True)
+    problem, pt_fixed = ba_staged
+    args, kw = loop_captured.eg
+    gba_problem, gba_kw = loop_captured.gba
+    valid = args[1].cpu().numpy()
+    out = {
+        "local_ba": check_solve_program(
+            "local_ba", solve_program.BundleAdjustProgram(CARD), ba.bundle_adjust,
+            (problem, ba_cam), dict(point_fixed=pt_fixed),
+            lambda r: r.poses.cpu().numpy(), smi_line),
+        "essential_graph": check_solve_program(
+            "essential_graph", solve_program.EssentialGraphProgram(CARD),
+            pose_graph.optimize_essential_graph, args, kw,
+            lambda r: r[0].cpu().numpy()[valid], smi_line),
+        "gba": check_solve_program(
+            "gba", solve_program.BundleAdjustProgram(CARD, pcg=True), ba.bundle_adjust_pcg,
+            (gba_problem, loop_cam), gba_kw, lambda r: r.poses.cpu().numpy(), smi_line),
+    }
+    out["concurrent_gba"] = check_concurrent_gbas(gba_problem, gba_kw, loop_cam)
+    out["gba_padding"] = check_gba_padding(gba_problem, gba_kw, loop_cam, smi_line)
+    out["essential_graph_padding"] = check_eg_padding(args, kw, smi_line)
+    return out
+
+
+PHASE_LIMIT_S = 600      # the watchdog: a phase running longer than this
+DEADLINE_S = 1150        # or past this time since the start dumps every
+                         # thread's stack and exits non-zero
+_START = time.monotonic()
+
+
+def run_phase(fn, *args, **kw):
+    """fn(*args, **kw) under the watchdog: if it has not returned within
+    PHASE_LIMIT_S (or by DEADLINE_S after the start, whichever is sooner),
+    faulthandler prints the stack of every thread and the process exits
+    with code 1. A hang shows where it hangs instead of running on silently
+    into the caller's time limit."""
+    limit = min(PHASE_LIMIT_S, DEADLINE_S - (time.monotonic() - _START))
+    faulthandler.dump_traceback_later(max(limit, 30.0), exit=True)
+    try:
+        return fn(*args, **kw)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
 def main() -> None:
     # ---- phase 1: device --------------------------------------------------
     if not torch.cuda.is_available():
@@ -3461,7 +3921,7 @@ def main() -> None:
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         cuda_build = pool.submit(cuda_orb.build_kernels, force=True, ptxas_verbose=True)
         native_build = pool.submit(native.build, force=True)
-        lib_path, native_path = cuda_build.result(), native_build.result()
+        lib_path, native_path = run_phase(lambda: (cuda_build.result(), native_build.result()))
     print(f"[build] {lib_path} and {native_path} in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -3476,60 +3936,68 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phases 3 to 8 ----------------------------------------------------
-    kernel = check_kernel(orb.get_extractor(orb_cfg, (cam.height, cam.width)),
-                          frames[0][0])
+    kernel = run_phase(check_kernel, orb.get_extractor(orb_cfg, (cam.height, cam.width)),
+                       frames[0][0])
     # bench.py's bench_system geometry; async_mapping (the worker) and
     # vocabulary=None are the defaults
     cfg = SLAMConfig(cam=cam, orb=orb_cfg, th_depth=6.0, max_keyframes=64,
                      max_points=16384, local_point_cap=4096,
                      max_frames_between_kf=30, min_init_features=400,
                      pipelined_fetch=False, profile_stages=True)
-    tracker_alone = drive_tracker_alone(cfg, frames, seq)
-    main_path, system, last_ba = drive_main_path(cfg, frames, seq)
-    ba_check = check_ba_card_vs_cpu(last_ba, cam)
-    search_check = check_mapping_searches(system, cam, orb_cfg)
-    dense = drive_keyframe_dense(cfg, frames, seq)
+    tracker_alone = run_phase(drive_tracker_alone, cfg, frames, seq)
+    main_path, system, last_ba = run_phase(drive_main_path, cfg, frames, seq)
+    ba_check = run_phase(check_ba_card_vs_cpu, last_ba, cam)
+    search_check = run_phase(check_mapping_searches, system, cam, orb_cfg)
+    dense = run_phase(drive_keyframe_dense, cfg, frames, seq)
     # ---- phases 9 to 11 ---------------------------------------------------
     place, place_system, captured, place_seq, place_frames, place_cam = \
-        drive_place_recognition(cam, orb_cfg)
-    reloc = check_relocalization(place_system, place_seq, place_frames)
-    place_system.shutdown()           # joins the worker and a GBA; raises a failure
-    loop = check_loop_card_vs_cpu(captured, place_system.vocabulary, place_cam)
+        run_phase(drive_place_recognition, cam, orb_cfg)
+    reloc = run_phase(check_relocalization, place_system, place_seq, place_frames)
+    run_phase(place_system.shutdown)  # joins the worker and a GBA; raises a failure
+    loop = run_phase(check_loop_card_vs_cpu, captured, place_system.vocabulary, place_cam)
     # ---- phases 12 and 13: stereo at KITTI geometry and capacity ----------
-    stereo_kitti, stereo_system, stereo_seq, stereo_frames = drive_stereo_kitti()
-    stereo_parts = check_stereo_parts(stereo_system, stereo_seq, stereo_frames)
-    # ---- phase 14: the default configuration (this slice's main path) ----
-    defaults_k1, defaults_system = drive_defaults_rgbd(
-        "defaults", defaults_config(cam, orb_cfg), frames, seq)
-    defaults_k4, _ = drive_defaults_rgbd(
-        "defaults K=4", defaults_config(cam, orb_cfg, fetch_batch=4), frames, seq)
-    defaults_stereo = drive_defaults_stereo(stereo_seq, stereo_frames)
+    stereo_kitti, stereo_system, stereo_seq, stereo_frames = run_phase(drive_stereo_kitti)
+    stereo_parts = run_phase(check_stereo_parts, stereo_system, stereo_seq, stereo_frames)
+    # ---- phase 14: the default configuration ------------------------------
+    defaults_k1, defaults_system = run_phase(
+        drive_defaults_rgbd, "defaults", defaults_config(cam, orb_cfg), frames, seq)
+    defaults_k4, _ = run_phase(
+        drive_defaults_rgbd, "defaults K=4", defaults_config(cam, orb_cfg, fetch_batch=4),
+        frames, seq)
+    defaults_stereo = run_phase(drive_defaults_stereo, stereo_seq, stereo_frames)
     # ---- phases 15 and 16: localization mode and the system API; backlog --
-    localization = check_localization(cam, orb_cfg)
-    reload = check_map_reload(place_system, place_seq, place_frames)
-    gba = check_global_ba(defaults_system, seq)
-    backlog = drive_backlog(cam, orb_cfg, frames, seq, place_system.vocabulary)
+    localization = run_phase(check_localization, cam, orb_cfg)
+    reload = run_phase(check_map_reload, place_system, place_seq, place_frames)
+    gba = run_phase(check_global_ba, defaults_system, seq)
+    backlog = run_phase(drive_backlog, cam, orb_cfg, frames, seq, place_system.vocabulary)
     # ---- phase 17: monocular ----------------------------------------------
-    mono, two_view_args, mono_a_system, mono_a_seq = drive_mono(cam, orb_cfg)
-    two_view = check_two_view_card_vs_cpu(two_view_args)
-    mono_loop, mono_system, mono_seq = drive_mono_loop(cam, orb_cfg, place_system.vocabulary)
-    mono_reloc = check_mono_relocalization(mono_system, mono_seq, mono_loop["first_ok"])
-    mono_system.shutdown()
-    replaced = check_replaced_points(mono_a_system, mono_a_seq, N_FRAMES_MONO)
-    mono_a_system.shutdown()
+    mono, two_view_args, mono_a_system, mono_a_seq = run_phase(drive_mono, cam, orb_cfg)
+    two_view = run_phase(check_two_view_card_vs_cpu, two_view_args)
+    mono_loop, mono_system, mono_seq = run_phase(drive_mono_loop, cam, orb_cfg,
+                                                 place_system.vocabulary)
+    mono_reloc = run_phase(check_mono_relocalization, mono_system, mono_seq,
+                           mono_loop["first_ok"])
+    run_phase(mono_system.shutdown)
+    replaced = run_phase(check_replaced_points, mono_a_system, mono_a_seq, N_FRAMES_MONO)
+    run_phase(mono_a_system.shutdown)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # ---- phase 18: the dataset drivers --------------------------------
-        drivers, tum_argv = drive_drivers(cam, orb_cfg, seq, frames, stereo_seq,
-                                          stereo_frames, defaults_k1["ate_m"], tmp)
+        drivers, tum_argv = run_phase(drive_drivers, cam, orb_cfg, seq, frames, stereo_seq,
+                                      stereo_frames, defaults_k1["ate_m"], tmp)
         # ---- phase 19: distributed global BA, batched multi-session ----
-        gba_parallel = check_distributed_gba(tmp)
-        multi = check_multi_session()
+        gba_parallel = run_phase(check_distributed_gba, tmp)
+        multi = run_phase(check_multi_session)
         # ---- phase 20: the ROS-style node, the viewers, the AR overlay ----
-        periphery = drive_periphery(cam, orb_cfg, seq, frames, place_system.vocabulary, tmp)
-        driver_viewer = drive_driver_viewer(tum_argv, tmp, N_FRAMES)
+        periphery = run_phase(drive_periphery, cam, orb_cfg, seq, frames,
+                              place_system.vocabulary, tmp)
+        driver_viewer = run_phase(drive_driver_viewer, tum_argv, tmp, N_FRAMES)
     # ---- phase 21: the frame programs -------------------------------------
-    programs = check_frame_programs(defaults_system, seq, stereo_system, stereo_seq,
-                                    stereo_frames, mono_a_system, mono_a_seq, frames, smi_line)
+    programs = run_phase(check_frame_programs, defaults_system, seq, stereo_system,
+                         stereo_seq, stereo_frames, mono_a_system, mono_a_seq, frames,
+                         smi_line)
+    # ---- phase 22: the solve programs -------------------------------------
+    solve_programs = run_phase(check_solve_programs, last_ba, cam, captured, place_cam,
+                               smi_line)
     check_no_jax("after the drives")  # a lazy import on a drive shows here
 
     print(json.dumps({"kernels": [{
@@ -3587,7 +4055,7 @@ def main() -> None:
         "replaced_points": replaced,
         "drivers": drivers, "distributed_gba": gba_parallel, "multi_session": multi,
         "periphery": periphery, "driver_viewer": driver_viewer,
-        "frame_programs": programs}]}), flush=True)
+        "frame_programs": programs, "solve_programs": solve_programs}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

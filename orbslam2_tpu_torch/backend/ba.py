@@ -17,7 +17,11 @@ Huber delta sqrt(5.991) mono / sqrt(7.815) stereo; 5 robust steps, outlier
 exclusion, 10 plain steps, final classification; fixed cameras as the gauge.
 The LM loop is a fixed number of steps with ``torch.where`` accept/reject
 and no early exit, as ``lax.scan`` in the JAX package: nothing in a solve
-waits for the host.
+waits for the host. A solve is a reset, then per phase a prologue, its LM
+steps and an epilogue, each updating a fixed set of state tensors in place
+(``_RobustLM``): the eager solve calls them in turn, and
+``backend/solve_program.py`` captures each once as a CUDA graph and replays
+the step once per LM step, as ``lax.scan`` runs its jitted step.
 
 The solve runs in the dtype of the problem's floating-point tensors. The JAX
 package solves in float32; the port's local mapper stages its problems in
@@ -104,7 +108,9 @@ def _residual_only_ba(problem: BAProblem, cam: PinholeCamera):
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    """A 0-d tensor of `like`'s dtype and device, filled on the device (a
+    Python number copied from the host is a copy no CUDA graph may hold)."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def _robust_weights(e: torch.Tensor, problem: BAProblem, use_huber: bool
@@ -221,8 +227,9 @@ def _solve_schur_dense(h_cc, h_pp, b_c, b_p, w_cp, cam_fixed, lam):
     torch.diagonal(s.view(k, 6, k, 6), dim1=0, dim2=2).add_(h_cc_d.permute(1, 2, 0))
     b_red = b_c.reshape(-1) - wy_rows @ b_p.reshape(-1)
 
-    # gauge: fixed cameras get identity rows/cols and zero rhs
-    free6 = (~cam_fixed).repeat_interleave(6)
+    # gauge: fixed cameras get identity rows/cols and zero rhs (expand, not
+    # repeat_interleave, which may read its output size on the host)
+    free6 = (~cam_fixed)[:, None].expand(k, 6).reshape(-1)
     s = torch.where(free6[:, None] & free6[None, :], s, 0.0) \
         + torch.diag((~free6).to(s.dtype))
     b_red = torch.where(free6, b_red, 0.0)
@@ -345,67 +352,135 @@ def _solve_schur_pcg(e, jc, jp, w, obs_cam, obs_pt, n_cams, n_pts, cam_fixed,
     return delta_c, torch.where(pt_fixed[:, None], 0.0, delta_p)
 
 
-def _robust_lm(problem: BAProblem, cam: PinholeCamera, phase_iters, point_fixed,
-               lam0: float, solve, reduce=_local) -> BAResult:
+class _RobustLM:
     """The two-phase robust LM schedule shared by both solvers: phase 0 with
     Huber, chi2 outlier exclusion between phases, later phases on inliers
     without Huber; a fixed number of steps with ``torch.where``
-    accept/reject. `solve(prob, active, use_huber, pt_fixed, lam)` ->
-    (delta_c, delta_p). `reduce` sums the costs and per-point counts over
-    the ranks of a distributed solve (`_solve_schur_pcg`)."""
-    problem = problem._replace(obs_cam=problem.obs_cam.long(),
-                               obs_pt=problem.obs_pt.long())
-    p = problem.points.shape[0]
-    dev = problem.points.device
-    pt_fixed = point_fixed if point_fixed is not None \
-        else torch.zeros(p, dtype=torch.bool, device=dev)
+    accept/reject.
 
-    def lm_phase(poses, points, active, use_huber, iters):
+    The solve's state (poses, points, the active observations, the phase's
+    frozen points and active set, damping and cost) lives in tensors made
+    once, which each part updates in place: ``reset`` (the state from the
+    problem), per phase ``prologue`` (the phase's guard, damping and cost),
+    ``step`` once per LM step, and ``epilogue`` (the classification). No
+    part reads a tensor on the host, so each can be captured as a CUDA graph
+    and replayed on new values of the problem's tensors (`solve_program`).
+    `solve(prob, active, use_huber, pt_fixed, lam)` -> (delta_c, delta_p).
+    `reduce` sums the costs and per-point counts over the ranks of a
+    distributed solve (`_solve_schur_pcg`)."""
+
+    def __init__(self, problem: BAProblem, cam: PinholeCamera, point_fixed,
+                 lam0: float, solve, reduce=_local):
+        self.problem = problem._replace(obs_cam=problem.obs_cam.long(),
+                                        obs_pt=problem.obs_pt.long())
+        self.cam, self.lam0, self.solve, self.reduce = cam, lam0, solve, reduce
+        points = problem.points
+        p = points.shape[0]
+        self.pt_fixed = point_fixed if point_fixed is not None \
+            else torch.zeros(p, dtype=torch.bool, device=points.device)
+        self.poses = torch.empty_like(problem.poses)
+        self.points = torch.empty_like(points)
+        self.active = torch.empty_like(problem.obs_valid)
+        self.pt_fixed_ph = torch.empty_like(self.pt_fixed)
+        self.active_ph = torch.empty_like(problem.obs_valid)
+        self.lam = torch.empty((), dtype=points.dtype, device=points.device)
+        self.cost = torch.empty((), dtype=points.dtype, device=points.device)
+
+    def _at(self, poses, points) -> BAProblem:
+        return self.problem._replace(poses=poses, points=points)
+
+    def reset(self) -> None:
+        self.poses.copy_(self.problem.poses)
+        self.points.copy_(self.problem.points)
+        self.active.copy_(self.problem.obs_valid)
+        self.cost.zero_()
+
+    def prologue(self, use_huber: bool) -> None:
         # guard: a point with <2 active mono observations and no stereo
         # one is unconstrained along its viewing ray; a linear step can slide
         # it far enough that the next damped point Hessian overflows float32.
         # Such points are frozen for the phase and their lone observation
         # leaves the problem (against a frozen point it would wrongly drag
         # the camera). A stereo observation constrains depth: one suffices.
-        under = _under_constrained(problem, active, pt_fixed, reduce)
-        pt_fixed_ph = pt_fixed | under
-        active_ph = active & ~under[problem.obs_pt]
-        lam = _scalar(lam0, points)
-        cost = _total_cost(problem._replace(poses=poses, points=points), cam,
-                           active_ph, use_huber, reduce)
-        for _ in range(iters):
-            prob = problem._replace(poses=poses, points=points)
-            delta_c, delta_p = solve(prob, active_ph, use_huber, pt_fixed_ph, lam)
-            poses_new = se3.retract(poses, delta_c)
-            points_new = points + torch.where(pt_fixed_ph[:, None], 0.0, delta_p)
-            cost_new = _total_cost(problem._replace(poses=poses_new, points=points_new),
-                                   cam, active_ph, use_huber, reduce)
-            # a non-finite step is never accepted: NaN poses turn z NaN, the
-            # z-gate then masks every residual out and the collapsed cost
-            # would pass the plain < test
-            finite = (torch.isfinite(cost_new) & torch.isfinite(delta_c.sum())
-                      & torch.isfinite(delta_p.sum()))
-            accept = (cost_new < cost) & finite
-            poses = torch.where(accept, poses_new, poses)
-            points = torch.where(accept, points_new, points)
-            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
-                              torch.clamp(lam * 5.0, max=1e8))
-            cost = torch.where(accept, cost_new, cost)
-        return poses, points, cost
+        prob = self.problem
+        under = _under_constrained(prob, self.active, self.pt_fixed, self.reduce)
+        self.pt_fixed_ph.copy_(self.pt_fixed | under)
+        self.active_ph.copy_(self.active & ~under[prob.obs_pt])
+        self.lam.fill_(self.lam0)
+        self.cost.copy_(_total_cost(self._at(self.poses, self.points), self.cam,
+                                    self.active_ph, use_huber, self.reduce))
 
-    poses, points = problem.poses, problem.points
-    active = problem.obs_valid
-    cost = _scalar(0.0, points)
-    for phase, iters in enumerate(phase_iters):
-        poses, points, cost = lm_phase(poses, points, active, phase == 0, iters)
-        inlier = _classify_inliers(problem._replace(poses=poses, points=points), cam)
+    def step(self, use_huber: bool) -> None:
+        poses, points, lam, cost = self.poses, self.points, self.lam, self.cost
+        delta_c, delta_p = self.solve(self._at(poses, points), self.active_ph, use_huber,
+                                      self.pt_fixed_ph, lam)
+        poses_new = se3.retract(poses, delta_c)
+        points_new = points + torch.where(self.pt_fixed_ph[:, None], 0.0, delta_p)
+        cost_new = _total_cost(self._at(poses_new, points_new), self.cam, self.active_ph,
+                               use_huber, self.reduce)
+        # a non-finite step is never accepted: NaN poses turn z NaN, the
+        # z-gate then masks every residual out and the collapsed cost
+        # would pass the plain < test
+        finite = (torch.isfinite(cost_new) & torch.isfinite(delta_c.sum())
+                  & torch.isfinite(delta_p.sum()))
+        accept = (cost_new < cost) & finite
+        poses.copy_(torch.where(accept, poses_new, poses))
+        points.copy_(torch.where(accept, points_new, points))
+        lam.copy_(torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
+                              torch.clamp(lam * 5.0, max=1e8)))
+        cost.copy_(torch.where(accept, cost_new, cost))
+
+    def epilogue(self) -> None:
+        inlier = _classify_inliers(self._at(self.poses, self.points), self.cam)
         # observations of under-constrained (phase-frozen) points were never
         # optimized: judged against the unmoved point they would read as
         # outliers and callers would erase the point's only observation; they
         # keep their prior status instead
-        unjudged = _under_constrained(problem, active, pt_fixed, reduce)[problem.obs_pt]
-        active = active & (inlier | unjudged)
-    return BAResult(poses=poses, points=points, inlier=active, cost=cost)
+        unjudged = _under_constrained(self.problem, self.active, self.pt_fixed,
+                                      self.reduce)[self.problem.obs_pt]
+        self.active.copy_(self.active & (inlier | unjudged))
+
+    def result(self) -> BAResult:
+        return BAResult(poses=self.poses, points=self.points, inlier=self.active,
+                        cost=self.cost)
+
+
+def _robust_lm(problem: BAProblem, cam: PinholeCamera, phase_iters, point_fixed,
+               lam0: float, solve, reduce=_local) -> BAResult:
+    """The eager solve: `_RobustLM`'s parts in turn."""
+    lm = _RobustLM(problem, cam, point_fixed, lam0, solve, reduce)
+    lm.reset()
+    for phase, iters in enumerate(phase_iters):
+        lm.prologue(phase == 0)
+        for _ in range(iters):
+            lm.step(phase == 0)
+        lm.epilogue()
+    return lm.result()
+
+
+def _dense_solve(cam: PinholeCamera):
+    """-> the local BA's `solve` for `_RobustLM`: the dense Schur solve."""
+    def solve(prob, active, use_huber, pt_fixed, lam):
+        eye3 = torch.eye(3, dtype=prob.points.dtype, device=prob.points.device)
+        h_cc, h_pp, b_c, b_p, w_cp, _ = _build_blocks(prob, cam, active, use_huber)
+        # freeze fixed points by zeroing their gradient and coupling
+        b_p = torch.where(pt_fixed[:, None], 0.0, b_p)
+        w_cp = torch.where(pt_fixed[None, :, None, None], 0.0, w_cp)
+        h_pp = torch.where(pt_fixed[:, None, None], eye3, h_pp)
+        return _solve_schur_dense(h_cc, h_pp, b_c, b_p, w_cp, prob.cam_fixed, lam)
+    return solve
+
+
+def _pcg_solve(cam: PinholeCamera, n_cams: int, n_pts: int, pcg_iters: int,
+               reduce=_local):
+    """-> the global BA's `solve` for `_RobustLM`: the matrix-free PCG."""
+    def solve(prob, active, use_huber, pt_fixed, lam):
+        e, jc, jp, z = _residuals_jacobians(prob, cam)
+        w, _ = _robust_weights(e, prob, use_huber)
+        w = torch.where(active & (z > 1e-6), w, 0.0)
+        return _solve_schur_pcg(e, jc, jp, w, prob.obs_cam, prob.obs_pt, n_cams, n_pts,
+                                prob.cam_fixed, pt_fixed, lam, pcg_iters, reduce)
+    return solve
 
 
 def bundle_adjust(
@@ -420,17 +495,7 @@ def bundle_adjust(
 
     `point_fixed`: optional [P] bool, points kept constant.
     """
-    eye3 = torch.eye(3, dtype=problem.points.dtype, device=problem.points.device)
-
-    def solve(prob, active, use_huber, pt_fixed, lam):
-        h_cc, h_pp, b_c, b_p, w_cp, _ = _build_blocks(prob, cam, active, use_huber)
-        # freeze fixed points by zeroing their gradient and coupling
-        b_p = torch.where(pt_fixed[:, None], 0.0, b_p)
-        w_cp = torch.where(pt_fixed[None, :, None, None], 0.0, w_cp)
-        h_pp = torch.where(pt_fixed[:, None, None], eye3, h_pp)
-        return _solve_schur_dense(h_cc, h_pp, b_c, b_p, w_cp, prob.cam_fixed, lam)
-
-    return _robust_lm(problem, cam, phase_iters, point_fixed, lam0, solve)
+    return _robust_lm(problem, cam, phase_iters, point_fixed, lam0, _dense_solve(cam))
 
 
 def bundle_adjust_pcg(
@@ -446,13 +511,6 @@ def bundle_adjust_pcg(
     schedule as `bundle_adjust` with the matrix-free PCG Schur solve, memory
     O(observations). `reduce`: see `_solve_schur_pcg`; the observations of
     `problem` are then this rank's slice and `inlier` covers only them."""
-    k, p = problem.poses.shape[0], problem.points.shape[0]
-
-    def solve(prob, active, use_huber, pt_fixed, lam):
-        e, jc, jp, z = _residuals_jacobians(prob, cam)
-        w, _ = _robust_weights(e, prob, use_huber)
-        w = torch.where(active & (z > 1e-6), w, 0.0)
-        return _solve_schur_pcg(e, jc, jp, w, prob.obs_cam, prob.obs_pt, k, p,
-                                prob.cam_fixed, pt_fixed, lam, pcg_iters, reduce)
-
+    solve = _pcg_solve(cam, problem.poses.shape[0], problem.points.shape[0], pcg_iters,
+                       reduce)
     return _robust_lm(problem, cam, phase_iters, point_fixed, lam0, solve, reduce)

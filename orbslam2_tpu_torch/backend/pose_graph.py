@@ -18,11 +18,18 @@ The JAX package stops the conjugate gradient with ``lax.while_loop`` once
 the residual has fallen by 1e-4 (at most 48 steps). Here every step runs,
 and a step after convergence changes nothing (``torch.where`` carries), so
 the solve never waits for the host. The solve runs in the poses' dtype.
+
+A solve is ``_EssentialGraph.setup`` and then ``step`` once per LM step (the
+JAX ``lm_step`` under ``lax.scan``), each updating the solve's state tensors
+in place: ``backend/solve_program.py`` captures both as CUDA graphs and
+replays the step. Padded edges (``edges_valid`` False, both ends at one
+valid keyframe, an identity measurement: ``pad_edges``) add exact zeros.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from orbslam2_tpu_torch.geometry import sim3
@@ -57,42 +64,68 @@ def _jacobians(poses, edges_i, edges_j, edges_meas):
     return j_i.permute(1, 2, 0), j_j.permute(1, 2, 0)
 
 
-def optimize_essential_graph(
-    poses: torch.Tensor,       # [K, 4, 4] initial Sim3 (Tcw-style, world->kf)
-    kf_valid: torch.Tensor,    # [K]
-    kf_fixed: torch.Tensor,    # [K] (the loop keyframe)
-    edges_i: torch.Tensor,     # [E] int
-    edges_j: torch.Tensor,     # [E] int
-    edges_meas: torch.Tensor,  # [E, 4, 4] measured S_j S_i^-1
-    edges_valid: torch.Tensor,  # [E]
-    fix_scale: bool = False,
-    iters: int = 20,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> (optimized Sim3 poses [K, 4, 4], final cost)."""
-    k = poses.shape[0]
-    edges_i, edges_j = edges_i.long(), edges_j.long()
-    edges_meas = edges_meas.to(poses.dtype)
-    like = dict(dtype=poses.dtype, device=poses.device)
-    w = edges_valid.to(poses.dtype)
-    free = kf_valid & ~kf_fixed
-    freef = free.to(poses.dtype)[:, None]
+def pad_edges(edges_i: np.ndarray, edges_j: np.ndarray, edges_meas: np.ndarray,
+              anchor: int, size: int):
+    """The edge lists padded to `size` rows: each padded edge joins keyframe
+    `anchor` (a valid one) to itself with an identity measurement, so that
+    its residual is finite, and is invalid, so that its weight is 0 and it
+    adds exact zeros. -> (edges_i, edges_j, edges_meas, edges_valid)."""
+    n = len(edges_i)
+    pad = size - n
+    valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+    fill = np.full(pad, anchor, np.int64)
+    eye = np.broadcast_to(np.eye(4, dtype=edges_meas.dtype), (pad, 4, 4))
+    return (np.concatenate([np.asarray(edges_i, np.int64), fill]),
+            np.concatenate([np.asarray(edges_j, np.int64), fill]),
+            np.concatenate([edges_meas, eye]), valid)
 
-    def cost(p):
-        r = _edge_residuals(p, edges_i, edges_j, edges_meas)
-        return torch.sum(torch.where(edges_valid[:, None], r * r, 0.0))
 
-    def per_kf(v_i, v_j):
+class _EssentialGraph:
+    """One essential-graph solve as state tensors (poses, damping, cost, the
+    edge weights and the free-keyframe mask) that `setup` and `step` update
+    in place; neither reads a tensor on the host."""
+
+    def __init__(self, poses, kf_valid, kf_fixed, edges_i, edges_j, edges_meas,
+                 edges_valid, fix_scale: bool):
+        like = dict(dtype=poses.dtype, device=poses.device)
+        self.poses, self.kf_valid, self.kf_fixed = poses, kf_valid, kf_fixed
+        self.edges_i, self.edges_j = edges_i.long(), edges_j.long()
+        self.edges_meas = edges_meas.to(poses.dtype)
+        self.edges_valid = edges_valid
+        self.fix_scale = fix_scale
+        self.k = poses.shape[0]
+        self.p = torch.empty_like(poses)
+        self.lam = torch.empty((), **like)
+        self.c = torch.empty((), **like)
+        self.w = torch.empty(edges_i.shape[0], **like)
+        self.freef = torch.empty((self.k, 1), **like)
+
+    def cost(self, p):
+        r = _edge_residuals(p, self.edges_i, self.edges_j, self.edges_meas)
+        return torch.sum(torch.where(self.edges_valid[:, None], r * r, 0.0))
+
+    def per_kf(self, v_i, v_j):
         """Sum edge rows [E, 7] into their keyframes -> [K, 7]."""
-        return (torch.zeros((k, 7), **like).index_add_(0, edges_i, v_i)
-                .index_add_(0, edges_j, v_j))
+        return (torch.zeros((self.k, 7), dtype=v_i.dtype, device=v_i.device)
+                .index_add_(0, self.edges_i, v_i).index_add_(0, self.edges_j, v_j))
 
-    def dot(a, b):
-        return torch.sum(a * b)
+    def setup(self) -> None:
+        self.p.copy_(self.poses)
+        self.w.copy_(self.edges_valid.to(self.w.dtype))
+        self.freef.copy_((self.kf_valid & ~self.kf_fixed).to(self.freef.dtype)[:, None])
+        self.lam.fill_(1e-6)
+        self.c.copy_(self.cost(self.p))
 
-    p = poses
-    lam = torch.tensor(1e-6, **like)
-    c = cost(p)
-    for _ in range(iters):
+    def step(self) -> None:
+        """One LM step: the central-difference Jacobians, the damped normal
+        system by 48 PCG steps, retract, accept."""
+        p, lam, c, w, freef = self.p, self.lam, self.c, self.w, self.freef
+        edges_i, edges_j, edges_meas = self.edges_i, self.edges_j, self.edges_meas
+        per_kf = self.per_kf
+
+        def dot(a, b):
+            return torch.sum(a * b)
+
         r = _edge_residuals(p, edges_i, edges_j, edges_meas) * w[:, None]
         j_i, j_j = _jacobians(p, edges_i, edges_j, edges_meas)
         j_i, j_j = j_i * w[:, None, None], j_j * w[:, None, None]
@@ -129,14 +162,33 @@ def optimize_essential_graph(
             pd = torch.where(run, z_n + beta * pd, pd)
             rz = torch.where(run, rz_n, rz)
         delta = x
-        if fix_scale:
+        if self.fix_scale:
             delta = torch.cat([delta[:, :6], torch.zeros_like(delta[:, 6:])], dim=1)
         delta = delta * freef
         p_new = sim3.exp(delta) @ p
-        c_new = cost(p_new)
+        c_new = self.cost(p_new)
         accept = c_new < c
-        p = torch.where(accept, p_new, p)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-10),
-                          torch.clamp(lam * 4.0, max=1e6))
-        c = torch.where(accept, c_new, c)
-    return p, c
+        p.copy_(torch.where(accept, p_new, p))
+        lam.copy_(torch.where(accept, torch.clamp(lam * 0.5, min=1e-10),
+                              torch.clamp(lam * 4.0, max=1e6)))
+        c.copy_(torch.where(accept, c_new, c))
+
+
+def optimize_essential_graph(
+    poses: torch.Tensor,       # [K, 4, 4] initial Sim3 (Tcw-style, world->kf)
+    kf_valid: torch.Tensor,    # [K]
+    kf_fixed: torch.Tensor,    # [K] (the loop keyframe)
+    edges_i: torch.Tensor,     # [E] int
+    edges_j: torch.Tensor,     # [E] int
+    edges_meas: torch.Tensor,  # [E, 4, 4] measured S_j S_i^-1
+    edges_valid: torch.Tensor,  # [E]
+    fix_scale: bool = False,
+    iters: int = 20,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (optimized Sim3 poses [K, 4, 4], final cost)."""
+    graph = _EssentialGraph(poses, kf_valid, kf_fixed, edges_i, edges_j, edges_meas,
+                            edges_valid, fix_scale)
+    graph.setup()
+    for _ in range(iters):
+        graph.step()
+    return graph.p, graph.c

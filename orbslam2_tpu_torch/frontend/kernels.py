@@ -18,6 +18,7 @@ from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.ops import hamming, match
 from orbslam2_tpu_torch.ops.orb import Keypoints
 from orbslam2_tpu_torch.backend import pose_opt
+from orbslam2_tpu_torch.utils import graph_capture
 
 
 class FrustumInfo(NamedTuple):
@@ -600,12 +601,16 @@ class FrameProgram:
         current.wait_stream(side)
         for t in _out_tensors(out).values():
             t.record_stream(current)
-        graph = torch.cuda.CUDAGraph()
         counted = cuda_orb.fused_orient_describe.launches
+        captured = {}
+
+        def step():
+            captured["outputs"] = self.run(*self._unflatten(inputs, pair), host_reads=False)
+
         # thread_local: the mapping worker goes on queueing work on its own
         # stream while this thread captures
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            outputs = self.run(*self._unflatten(inputs, pair), host_reads=False)
+        graph = graph_capture.capture({"step": step}, side)[0]["step"]
+        outputs = captured["outputs"]
         held = cuda_orb.fused_orient_describe.launches - counted
         cuda_orb.fused_orient_describe.launches = counted   # a capture runs nothing
         self._graphs[key] = _Captured(graph, inputs, outputs, held, flat[-6:])

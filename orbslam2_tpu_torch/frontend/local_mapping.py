@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from orbslam2_tpu_torch import resolve_device
-from orbslam2_tpu_torch.backend import ba
+from orbslam2_tpu_torch.backend import ba, solve_program
 from orbslam2_tpu_torch.frontend import kernels
 from orbslam2_tpu_torch.frontend.triangulation import triangulate_neighbors
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
@@ -121,6 +121,9 @@ class LocalMapper:
         # tracker's re-entrant lock makes these no-ops.
         self.map_lock = threading.RLock()
         self.kfdb = None  # the keyframe database, set by SLAMSystem with a vocabulary
+        # the local BA as a program (CUDA graphs of its parts on a card, the
+        # eager solve on the CPU), captured once per padded problem size
+        self.ba_program = solve_program.BundleAdjustProgram(self.device)
 
     # ------------------------------------------------------------------
     def process_keyframe(self, kf: int, backlog: bool = False) -> None:
@@ -480,7 +483,7 @@ class LocalMapper:
         problem, pt_fixed, apply_ctx = staged
         # solve unlocked: the reference likewise runs the optimization
         # outside the map mutex and takes it only for the write-back
-        res = ba.bundle_adjust(problem, self.cam, point_fixed=pt_fixed)
+        res = self.ba_program(problem, self.cam, point_fixed=pt_fixed)
         new_poses = res.poses.cpu().numpy()
         new_points = res.points.cpu().numpy()
         inlier = res.inlier.cpu().numpy()

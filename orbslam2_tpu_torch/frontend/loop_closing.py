@@ -41,8 +41,7 @@ import numpy as np
 import torch
 
 from orbslam2_tpu_torch import resolve_device
-from orbslam2_tpu_torch.backend import ba, pose_graph, sim3_opt
-from orbslam2_tpu_torch.backend.ba import BAProblem
+from orbslam2_tpu_torch.backend import ba, pose_graph, sim3_opt, solve_program
 from orbslam2_tpu_torch.frontend import kernels
 from orbslam2_tpu_torch.frontend.local_mapping import (
     LocalMapper, LocalMapperConfig, kf_keypoints, size_bucket)
@@ -53,9 +52,19 @@ from orbslam2_tpu_torch.slammap import covisibility
 from orbslam2_tpu_torch.slammap.keyframe_db import KeyFrameDatabase
 from orbslam2_tpu_torch.slammap.mapstate import MapState
 from orbslam2_tpu_torch.solvers import horn
+from orbslam2_tpu_torch.utils import graph_capture
 from orbslam2_tpu_torch.utils.profiling import StageTimer
 
 RANSAC_ITERS = 300
+# padded sizes of the solves' problems, so that their programs are replayed
+# and not captured again per loop. A padded row costs its share of a solve:
+# on an H100 a GBA of 25 200 observations kept the card busy 71.5 ms
+# unpadded, 89.2 in 32 768 slots and 190.9 in 65 536, and an essential
+# graph of 66 edges 99.4 ms in 256 slots, 128.4 in 1 024 and 236.1 in 4 096,
+# against 90-120 ms a capture (chip_smoke.py phase 22). So both grow by 2
+# (the JAX package pads GBA observations by 4 from the same floor).
+GBA_OBS_FLOOR, GBA_OBS_GROWTH = 16384, 2
+EG_EDGE_FLOOR, EG_EDGE_GROWTH = 256, 2
 
 
 @dataclasses.dataclass
@@ -112,6 +121,14 @@ class LoopCloser:
         self._gba_threads: List[threading.Thread] = []
         self.error: Optional[Exception] = None    # a failed GBA thread's
         self.stats = StageTimer(enabled=False)   # enabled with profile_stages
+        # the essential graph and the global BA as programs (CUDA graphs on a
+        # card, the eager solves on the CPU); two GBAs in flight take turns
+        # on the GBA program
+        self.eg_program = solve_program.EssentialGraphProgram(self.device)
+        self.gba_program = solve_program.BundleAdjustProgram(self.device, pcg=True)
+        # each solve's (real, padded) essential-graph edges or global-BA
+        # observations, which choose its program's key
+        self.solve_sizes = {"essential_graph": [], "gba": []}
         # join a GBA in flight before interpreter teardown: a daemon thread in
         # the middle of a device call when the runtime goes away can abort the
         # process (registered weakly; joining a finished thread is a no-op)
@@ -408,11 +425,15 @@ class LoopCloser:
 
         kf_fixed = np.zeros(kmax, bool)
         kf_fixed[loop_kf] = True
+        # padded edges join the loop keyframe to itself and add exact zeros
+        n_edges = len(e_i)
+        e_i, e_j, meas, e_valid = pose_graph.pad_edges(
+            e_i, e_j, meas, loop_kf, size_bucket(n_edges, EG_EDGE_FLOOR, EG_EDGE_GROWTH))
+        self.solve_sizes["essential_graph"].append((n_edges, len(e_i)))
         with self.stats.stage("essential_graph"):
-            new_sim3, _ = pose_graph.optimize_essential_graph(
+            new_sim3, _ = self.eg_program(
                 self._dev(cur_sim3), self._dev(m.kf_valid), self._dev(kf_fixed),
-                self._dev(e_i), self._dev(e_j), self._dev(meas),
-                torch.ones(len(e_i), dtype=torch.bool, device=self.device),
+                self._dev(e_i), self._dev(e_j), self._dev(meas), self._dev(e_valid),
                 fix_scale=cfg.fix_scale)
             new_sim3 = new_sim3.cpu().numpy()
 
@@ -457,6 +478,7 @@ class LoopCloser:
         else:
             self._run_gba(snap)
 
+    @graph_capture.entry()
     def wait_gba(self, timeout: float = 300.0) -> bool:
         """Join every GBA in flight; the caller must not hold the map lock.
         -> False on timeout; raises the exception of a GBA that failed on
@@ -469,6 +491,7 @@ class LoopCloser:
         if self.error is not None:
             raise RuntimeError("the global BA thread failed") from self.error
 
+    @graph_capture.entry()    # a GBA thread captures meanwhile
     def _join_gba(self, timeout: float = 300.0) -> None:
         deadline = time.monotonic() + timeout
         for t in list(self._gba_threads):
@@ -476,25 +499,39 @@ class LoopCloser:
 
     def _snapshot_gba(self, fixed_kf: int, idx: int):
         """The global BA problem of the current map, in float64 on the
-        device. The caller holds the map lock."""
+        device, its observations padded to a size bucket with rows of
+        camera 0 and point 0, invalid, as the JAX package pads them (its
+        buckets grow by 4, these by 2). The caller holds the map lock."""
         m = self.map
         cfg = self.cfg
         ks, slots = np.where(m.kf_pt >= 0)
         pids = m.kf_pt[ks, slots]
         keep = m.kf_valid[ks] & m.pt_valid[pids]
         ks, slots, pids = ks[keep], slots[keep], pids[keep]
-        if len(ks) < 100:
+        n_obs = len(ks)
+        if n_obs < 100:
             return None
+        obs_cap = size_bucket(n_obs, GBA_OBS_FLOOR, GBA_OBS_GROWTH)
+        self.solve_sizes["gba"].append((n_obs, obs_cap))
+        o_cam = np.zeros(obs_cap, np.int64)
+        o_pt = np.zeros(obs_cap, np.int64)
+        o_uv = np.zeros((obs_cap, 3))
+        o_sig = np.ones(obs_cap)
+        o_st = np.zeros(obs_cap, bool)
+        o_val = np.zeros(obs_cap, bool)
         ur = m.kf_kp_ur[ks, slots]
-        o_uv = np.concatenate([m.kf_kp_xy[ks, slots].astype(np.float64),
-                               np.maximum(ur, -1.0)[:, None]], axis=1)
-        o_sig = (1.0 / cfg.scale_factor ** 2) ** m.kf_kp_octave[ks, slots].astype(np.float64)
+        o_cam[:n_obs], o_pt[:n_obs] = ks, pids
+        o_uv[:n_obs, :2] = m.kf_kp_xy[ks, slots]
+        o_uv[:n_obs, 2] = np.maximum(ur, -1.0)
+        o_sig[:n_obs] = (1.0 / cfg.scale_factor ** 2) ** m.kf_kp_octave[ks, slots].astype(
+            np.float64)
+        o_st[:n_obs] = ur >= 0
+        o_val[:n_obs] = True
         cam_fixed = ~m.kf_valid
         cam_fixed[fixed_kf] = True
-        problem = BAProblem(*(self._dev(x) for x in (
+        problem = ba.BAProblem(*(self._dev(x) for x in (
             m.kf_pose.astype(np.float64), m.pt_pos.astype(np.float64), cam_fixed,
-            ks.astype(np.int64), pids.astype(np.int64), o_uv, o_sig, ur >= 0,
-            np.ones(len(ks), bool))))
+            o_cam, o_pt, o_uv, o_sig, o_st, o_val)))
         return {
             "idx": idx,
             "fixed_kf": fixed_kf,
@@ -507,6 +544,7 @@ class LoopCloser:
         }
 
     def _run_gba_thread(self, snap) -> None:
+        graph_capture.background()
         try:
             self._run_gba(snap)
         except Exception as e:  # kept; raised on the caller's thread
@@ -514,8 +552,8 @@ class LoopCloser:
 
     def _run_gba(self, snap) -> None:
         with self.stats.stage("gba_solve"):
-            res = ba.bundle_adjust_pcg(snap["problem"], self.cam, phase_iters=(5, 5),
-                                       point_fixed=snap["pt_fixed"])
+            res = self.gba_program(snap["problem"], self.cam, phase_iters=(5, 5),
+                                   point_fixed=snap["pt_fixed"])
             new_poses = res.poses.cpu().numpy()
             new_points = res.points.cpu().numpy()
         with self.map_lock:

@@ -41,6 +41,8 @@ from typing import Optional
 
 import numpy as np
 
+from orbslam2_tpu_torch.utils import graph_capture
+
 
 class MappingWorker:
     def __init__(self, local_mapper, loop_closer=None, map_lock=None,
@@ -91,9 +93,14 @@ class MappingWorker:
             self._idle.clear()
             self.queue.put((kf, word_ids, mapped))
 
+    # the caller's calls: the worker's captures and graph launches run while
+    # one is open (utils/graph_capture.py), so a caller that polls or waits
+    # for the worker lets it go on
+    @graph_capture.entry()
     def queue_size(self) -> int:
         return self.queue.qsize()
 
+    @graph_capture.entry()
     def idle(self) -> bool:
         """Local mapping is caught up (the reference's AcceptKeyFrames true
         and queue empty). Inline mapping is always caught up: the loop-stage
@@ -101,10 +108,12 @@ class MappingWorker:
         loop-closing queue never does."""
         return self.sync_mapping or self._idle.is_set()
 
+    @graph_capture.entry()
     def accept_keyframes(self) -> bool:
         """Do not pile up keyframes faster than the worker drains them."""
         return self.queue.qsize() < 3
 
+    @graph_capture.entry()
     def wait_idle(self, timeout: float = 60.0) -> bool:
         """Block until the queue is drained and the last keyframe mapped.
         -> False on timeout. Raises the worker's first exception."""
@@ -118,6 +127,7 @@ class MappingWorker:
         self._join(timeout)
         self._raise_if_failed()
 
+    @graph_capture.entry()
     def _join(self, timeout: float = 60.0) -> None:
         if self._thread.is_alive():
             self.queue.put(None)
@@ -129,6 +139,7 @@ class MappingWorker:
 
     # ------------------------------------------------------------------
     def _run(self) -> None:
+        graph_capture.background()
         while True:
             item = self.queue.get()
             if item is None:

@@ -69,6 +69,7 @@ from orbslam2_tpu_torch.slammap import covisibility
 from orbslam2_tpu_torch.slammap.mapstate import MapCapacity, MapState
 from orbslam2_tpu_torch.ops import match as match_ops
 from orbslam2_tpu_torch.solvers import epnp, horn, initializer
+from orbslam2_tpu_torch.utils import graph_capture
 from orbslam2_tpu_torch.utils.profiling import StageTimer
 
 
@@ -244,13 +245,18 @@ class Tracker:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+    # each a caller's call: captures on the mapping worker's threads may run
+    # meanwhile (utils/graph_capture.py)
+    @graph_capture.entry()
     def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float) -> Optional[np.ndarray]:
         return self._track_images("rgbd", (gray, depth), timestamp)
 
+    @graph_capture.entry()
     def track_stereo(self, left: np.ndarray, right: np.ndarray,
                      timestamp: float) -> Optional[np.ndarray]:
         return self._track_images("stereo", (left, right), timestamp)
 
+    @graph_capture.entry()
     def track_mono(self, gray: np.ndarray, timestamp: float) -> Optional[np.ndarray]:
         self.is_mono = True
         return self._track_images("mono", (gray,), timestamp)
@@ -656,6 +662,7 @@ class Tracker:
             fetched = self._fetch_now(rec2["out"])
         return self._apply_one(rec2, fetched)
 
+    @graph_capture.entry()
     def flush_frames(self) -> None:
         """Apply every pipelined frame in flight (waits for their fetch).
         Precedes every read of per-frame bookkeeping (trajectory, savers)
@@ -1476,6 +1483,7 @@ class Tracker:
             tcr=tcr.astype(np.float32), ref_kf=self.ref_kf, ref_order=ref_order,
             timestamp=fr.timestamp, lost=lost))
 
+    @graph_capture.entry()     # waits for the worker, takes the map lock
     def full_trajectory_twc(self, wait: bool = True) -> np.ndarray:
         """Recover all frame poses through their reference keyframes,
         chaining through culled keyframes via stored relative poses (one

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from orbslam2_tpu_torch.backend import solve_program
 from orbslam2_tpu_torch.frontend.local_mapping import LocalMapper, LocalMapperConfig
 from orbslam2_tpu_torch.frontend.loop_closing import LoopCloser, LoopCloserConfig
 from orbslam2_tpu_torch.frontend.orchestrator import MappingWorker
@@ -37,6 +38,7 @@ from orbslam2_tpu_torch.io import trajectory as traj_io
 from orbslam2_tpu_torch.ops.orb import ORBExtractor
 from orbslam2_tpu_torch.slammap.keyframe_db import KeyFrameDatabase
 from orbslam2_tpu_torch.slammap.mapstate import MapState
+from orbslam2_tpu_torch.utils import graph_capture
 
 
 class Sensor(enum.Enum):
@@ -85,6 +87,10 @@ class SLAMSystem:
             # one map lock shared by tracker, mapper and the GBA thread
             self.loop_closer.map_lock = self.tracker.map_lock
             self.local_mapper.kfdb = self.kfdb
+        # the global BA program of `global_bundle_adjust`: the loop closer's
+        # where there is one (a solve holds the program's lock)
+        self._gba_program = self.loop_closer.gba_program if self.loop_closer is not None \
+            else solve_program.BundleAdjustProgram(self.device, pcg=True)
         self.tracker.vocabulary = vocabulary
         self.tracker.kfdb = self.kfdb
         self.tracker.loop_closer = self.loop_closer
@@ -120,6 +126,11 @@ class SLAMSystem:
         return self.tracker.track_stereo(left, right, timestamp)
 
     # ------------------------------------------------------------------
+    # the methods that wait for the worker or take the map lock are each a
+    # caller's call (utils/graph_capture.py): the worker's captures run
+    # while one is open, and one may wait for a worker that holds the map
+    # lock while it captures
+    @graph_capture.entry()
     def activate_localization_mode(self) -> None:
         """System::ActivateLocalizationMode: apply the frames in flight, let
         mapping finish what is queued, then track only: no keyframe, no map
@@ -129,12 +140,14 @@ class SLAMSystem:
         self.cfg.localization_only = True
         self.tracker.cfg.localization_only = True
 
+    @graph_capture.entry()
     def deactivate_localization_mode(self) -> None:
         """System::DeactivateLocalizationMode: map again."""
         self.tracker.flush_frames()
         self.cfg.localization_only = False
         self.tracker.cfg.localization_only = False
 
+    @graph_capture.entry()
     def reset(self) -> None:
         """System::Reset."""
         self.tracker.flush_frames()
@@ -142,6 +155,7 @@ class SLAMSystem:
         with self.tracker.map_lock:
             self.tracker.reset()
 
+    @graph_capture.entry()
     def shutdown(self) -> None:
         """System::Shutdown: apply the frames in flight, map what is queued,
         join the mapping worker, then wait for a global BA in flight.
@@ -155,6 +169,7 @@ class SLAMSystem:
         if self.loop_closer is not None:
             self.loop_closer.wait_gba()
 
+    @graph_capture.entry()
     def wait_mapping_idle(self, timeout: float = 60.0) -> bool:
         """Block until background mapping and a global BA in flight have
         drained (before reading the trajectory or saving the map). -> False
@@ -187,6 +202,7 @@ class SLAMSystem:
             return np.zeros((0, 2), np.float32), np.zeros(0, bool)
         return lf.kp.xy.cpu().numpy(), (lf.pt_ids >= 0) & ~lf.is_outlier
 
+    @graph_capture.entry()
     def global_bundle_adjust(self, iters: int = 10) -> None:
         """Full-map bundle adjustment (the reference's
         GlobalBundleAdjustemnt): the loop closer's global BA (Schur-complement
@@ -204,6 +220,7 @@ class SLAMSystem:
                                           async_gba=False),
                          device=self.device)
         gba.stats.enabled = self.cfg.profile_stages
+        gba.gba_program = self._gba_program
         with self.tracker.map_lock:
             ids = self.map.keyframe_ids()
             if len(ids) < 2:
@@ -212,6 +229,7 @@ class SLAMSystem:
             gba.request_global_ba(fixed_kf=int(ids[0]))
             self.map.change_index += 1
 
+    @graph_capture.entry()
     def change_calibration(self, cam) -> None:
         """Tracking::ChangeCalibration: new intrinsics from the next frame,
         for the tracker, the local mapper and the loop closer. A new image
@@ -231,6 +249,7 @@ class SLAMSystem:
                 self.tracker.extractor = ORBExtractor(
                     self.cfg.orb, (cam.height, cam.width), self.device)
 
+    @graph_capture.entry()
     def save_map(self, path: str) -> None:
         """Persist the full map as one compressed npz."""
         self.tracker.flush_frames()
@@ -238,6 +257,7 @@ class SLAMSystem:
         with self.tracker.map_lock:
             self.map.save(path)
 
+    @graph_capture.entry()
     def load_map(self, path: str) -> None:
         """Load a saved map; the tracker then relocalizes against it."""
         loaded = MapState.load(path)

@@ -8,6 +8,11 @@ with one observation, masked observations. Every case has the same padded
 shape (8 cameras, 128 points, 1024 observations, as the mapper pads
 problems) and passes ``point_fixed``, so JAX compiles one program.
 
+The solve's parts (reset, prologue, LM step, epilogue), which the solve
+programs capture as CUDA graphs, read no tensor on the host and, run in a
+program's order on the CPU, give the eager solve bit for bit; a program on
+the CPU is the eager solve, and its key follows the padded sizes.
+
 Tolerances: poses within 1e-4 and points within 1e-4 + 1e-5 of their value
 (they lie 8-16 m away; float32 sums run in another order and LM steps
 compound the difference);
@@ -18,14 +23,17 @@ the clean case, whose cost is float32 round-off).
 import jax
 import numpy as np
 import pytest
+import torch
 
 from orbslam2_tpu.backend import ba as jba
 from orbslam2_tpu.geometry.camera import PinholeCamera as JCamera
 from orbslam2_tpu_torch.backend import ba as tba
+from orbslam2_tpu_torch.backend import solve_program
+from orbslam2_tpu_torch.frontend.local_mapping import size_bucket
 from orbslam2_tpu_torch.geometry import se3 as tse3
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera as TCamera
 
-from torch_port_helpers import j, n, t
+from torch_port_helpers import j, n, no_host_reads, t
 
 CAM_KW = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, bf=50.0)
 JCAM, TCAM = JCamera(**CAM_KW), TCamera(**CAM_KW)
@@ -162,3 +170,84 @@ def test_closed_form_inverses_match_jax(seed):
     np.testing.assert_allclose(n(tba._inv3x3(t(m3))), n(jba._inv3x3(j(m3))),
                                rtol=1e-5, atol=1e-7)
 
+
+
+# ----------------------------------------------------------------------
+# The solve programs' parts (CUDA graphs on a card) on the CPU
+# ----------------------------------------------------------------------
+SOLVES = {"local_ba": (False, tba.bundle_adjust, dict(phase_iters=(5, 10))),
+          "gba": (True, tba.bundle_adjust_pcg, dict(phase_iters=(5, 5)))}
+
+
+def float64_problem(case="noisy_outliers"):
+    """-> (the case's problem in float64, its point_fixed), torch."""
+    f = make_problem(sorted(CASES).index(case), **CASES[case])
+    as64 = {k: (v.astype(np.float64) if v.dtype == np.float32 else v) for k, v in f.items()}
+    return tba.BAProblem(*(t(as64[k]) for k in FIELDS)), t(f["point_fixed"])
+
+
+@pytest.mark.parametrize("solve", sorted(SOLVES))
+def test_solve_program_parts_read_nothing_on_the_host(solve):
+    """The parts a program captures, run eagerly in its replay order under
+    the host-read guard (no `if` on a tensor, no `item`), give the eager
+    solve bit for bit."""
+    pcg, eager, kw = SOLVES[solve]
+    problem, fixed = float64_problem()
+    program = solve_program.BundleAdjustProgram("cpu", pcg=pcg)
+    a = solve_program._bind(solve_program._BA_SIGNATURES[pcg], (problem, TCAM),
+                            dict(point_fixed=fixed, **kw))
+    parts, schedule, outputs = program._build([x.clone() for x in program._flat(a)], a)
+    iters = kw["phase_iters"]
+    assert schedule.count("step_huber") == iters[0] and schedule.count("step_plain") == iters[1]
+    assert len(parts) == 6 and schedule[0] == "reset"
+    with no_host_reads():
+        for name in schedule:
+            parts[name]()
+    want = eager(problem, TCAM, point_fixed=fixed, **kw)
+    for got, ref in zip(outputs, want):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("solve", sorted(SOLVES))
+def test_bundle_adjust_program_on_the_cpu_is_the_eager_solve(solve):
+    pcg, eager, kw = SOLVES[solve]
+    problem, fixed = float64_problem("stereo_rows")
+    program = solve_program.BundleAdjustProgram("cpu", pcg=pcg)
+    got = program(problem, TCAM, point_fixed=fixed, **kw)
+    want = eager(problem, TCAM, point_fixed=fixed, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (program.captures, program.replays, program.graph_launches) == (0, 0, 0)
+
+
+def pad_observations(problem, size):
+    """The observation rows padded to `size` as the loop closer pads a
+    global BA (camera 0, point 0, invalid)."""
+    o = problem.obs_cam.shape[0]
+
+    def pad(x, fill):
+        return torch.cat([x, torch.full((size - o,) + x.shape[1:], fill, dtype=x.dtype)])
+
+    return problem._replace(obs_cam=pad(problem.obs_cam, 0), obs_pt=pad(problem.obs_pt, 0),
+                            obs_uv=pad(problem.obs_uv, 0.0),
+                            obs_inv_sigma2=pad(problem.obs_inv_sigma2, 1.0),
+                            obs_stereo=pad(problem.obs_stereo, False),
+                            obs_valid=pad(problem.obs_valid, False))
+
+
+def test_program_keys_follow_the_size_buckets():
+    """Two observation counts in one bucket stage one shape and give one
+    key, so the second solve replays the first one's graphs; a count in the
+    next bucket gives another key; so do other settings."""
+    problem, fixed = float64_problem()
+    o = problem.obs_cam.shape[0]
+    sized = [pad_observations(problem, size_bucket(o + extra, 2048, 4))
+             for extra in (100, 1000, 1100)]
+    assert [p.obs_cam.shape[0] for p in sized] == [2048, 2048, 8192]
+    for pcg in (False, True):
+        program = solve_program.BundleAdjustProgram("cpu", pcg=pcg)
+        keys = [program.key(p, TCAM, point_fixed=fixed) for p in sized]
+        assert keys[0] == keys[1] != keys[2]
+        assert program.key(sized[0], TCAM, point_fixed=None) == keys[0]
+        assert program.key(sized[0], TCAM, phase_iters=(5, 5), point_fixed=fixed) != keys[0]
+        as32 = sized[0]._replace(poses=sized[0].poses.float(), points=sized[0].points.float())
+        assert program.key(as32, TCAM, point_fixed=fixed) != keys[0]

@@ -10,6 +10,13 @@ compared. Tolerances: the Sim3 maps and Umeyama 1e-5 (float32 of unit-sized
 quantities, with a cube root and an SVD in between), RANSAC and the
 optimisation 1e-4 on the Sim3 and the same inlier mask or count, the
 SearchBySim3 matches identical.
+
+The essential graph's setup and LM step (captured as CUDA graphs by its
+program on a card) read no tensor on the host; padded edges and padded
+global-BA observations add exact zeros: a padded problem solves as the
+unpadded one in float64, within 1e-12 (the cost sums over more rows, so
+its rounding may differ in the last bits; every sum into a keyframe, a
+camera or a point adds only zeros).
 """
 import jax
 import jax.numpy as jnp
@@ -27,16 +34,17 @@ from orbslam2_tpu.geometry.camera import PinholeCamera as JCamera
 from orbslam2_tpu.solvers import horn as jhorn
 from orbslam2_tpu_torch import convert
 from orbslam2_tpu_torch.backend import ba as tba
-from orbslam2_tpu_torch.backend import pose_graph, sim3_opt
+from orbslam2_tpu_torch.backend import pose_graph, sim3_opt, solve_program
 from orbslam2_tpu_torch.frontend import kernels
+from orbslam2_tpu_torch.frontend.local_mapping import size_bucket
 from orbslam2_tpu_torch.geometry import sim3, sim3_np
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.solvers import horn
 
-from test_torch_ba import CASES, FIELDS, make_problem
+from test_torch_ba import CASES, FIELDS, float64_problem, make_problem, pad_observations
 from test_torch_ba import JCAM as BA_JCAM, TCAM as BA_TCAM
-from torch_port_helpers import (camera_centres, j, jax_keypoints, n, random_keypoints, t,
-                                torch_keypoints)
+from torch_port_helpers import (camera_centres, j, jax_keypoints, n, no_host_reads,
+                                random_keypoints, t, torch_keypoints)
 
 CAM_KW = dict(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240, bf=26.0)
 JCAM, TCAM = JCamera(**CAM_KW), PinholeCamera(**CAM_KW)
@@ -272,6 +280,92 @@ def test_essential_graph_solves_in_the_problems_dtype():
         t(meas.astype(np.float64)), t(ok), fix_scale=True)
     assert p64.dtype == torch.float64
     assert np.abs(camera_centres(n(p64)[:12]) - camera_centres(n(p32)[:12])).max() < 1e-3
+
+
+def ring_problem64(seed):
+    """ring_problem in float64, as the loop closer stages it (torch)."""
+    _, poses, valid, fixed, e_i, e_j, meas = ring_problem(seed)
+    return [t(x) for x in (poses.astype(np.float64), valid, fixed, e_i.astype(np.int64),
+                           e_j.astype(np.int64), meas.astype(np.float64))]
+
+
+def test_essential_graph_parts_read_nothing_on_the_host():
+    """The setup and the LM step its program captures, run eagerly in the
+    program's order under the host-read guard, give the eager solve bit for
+    bit."""
+    poses, valid, fixed, e_i, e_j, meas = ring_problem64(2)
+    ok = torch.ones(len(e_i), dtype=torch.bool)
+    graph = pose_graph._EssentialGraph(poses, valid, fixed, e_i, e_j, meas, ok, True)
+    with no_host_reads():
+        graph.setup()
+        for _ in range(20):
+            graph.step()
+    p, c = pose_graph.optimize_essential_graph(poses, valid, fixed, e_i, e_j, meas, ok,
+                                               fix_scale=True)
+    assert torch.equal(graph.p, p) and torch.equal(graph.c, c)
+
+
+@pytest.mark.parametrize("fix_scale", [True, False])
+def test_padded_edges_solve_as_the_unpadded_graph(fix_scale):
+    """Edges padded as the loop closer pads them (the fixed keyframe joined
+    to itself, identity measurement, invalid) change nothing: poses within
+    1e-10 in float64 (the module's docstring says why not bit for bit), the
+    fixed keyframe and the invalid slots unmoved."""
+    poses, valid, fixed, e_i, e_j, meas = ring_problem64(3)
+    ok = torch.ones(len(e_i), dtype=torch.bool)
+    padded = [t(x) for x in pose_graph.pad_edges(n(e_i), n(e_j), n(meas), 0, 256)]
+    assert padded[0].shape[0] == 256 and int(padded[3].sum()) == len(e_i)
+    p, c = pose_graph.optimize_essential_graph(poses, valid, fixed, e_i, e_j, meas, ok,
+                                               fix_scale=fix_scale)
+    pp, cp = pose_graph.optimize_essential_graph(poses, valid, fixed, *padded,
+                                                 fix_scale=fix_scale)
+    np.testing.assert_allclose(n(pp), n(p), rtol=0, atol=1e-10)
+    assert float(cp) == pytest.approx(float(c), rel=1e-10)
+    assert float(c) < float(pose_graph._EssentialGraph(
+        poses, valid, fixed, e_i, e_j, meas, ok, fix_scale).cost(poses))
+    np.testing.assert_array_equal(n(pp)[0], n(poses)[0])
+    np.testing.assert_array_equal(n(pp)[12:], n(poses)[12:])
+
+
+def test_essential_graph_program_on_the_cpu_is_the_eager_solve():
+    """On the CPU the program is the eager solve; its key follows the edge
+    bucket: two edge counts in one bucket give one key, the next bucket
+    another, as does the scale switch."""
+    poses, valid, fixed, e_i, e_j, meas = ring_problem64(4)
+    ok = torch.ones(len(e_i), dtype=torch.bool)
+    program = solve_program.EssentialGraphProgram("cpu")
+    got = program(poses, valid, fixed, e_i, e_j, meas, ok, fix_scale=True)
+    want = pose_graph.optimize_essential_graph(poses, valid, fixed, e_i, e_j, meas, ok,
+                                               fix_scale=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (program.captures, program.replays) == (0, 0)
+
+    def key(n_edges, **kw):
+        cut = [x[:n_edges] for x in (e_i, e_j, meas)]
+        size = size_bucket(n_edges, 4, 2)
+        args = [t(x) for x in pose_graph.pad_edges(*map(n, cut), 0, size)]
+        return program.key(poses, valid, fixed, *args, **kw)
+
+    assert key(5, fix_scale=True) == key(7, fix_scale=True) != key(9, fix_scale=True)
+    assert key(5, fix_scale=True) != key(5, fix_scale=False)
+
+
+@pytest.mark.parametrize("case", ["noisy_outliers", "stereo_rows"])
+def test_padded_gba_solves_as_the_unpadded_problem(case):
+    """Global-BA observations padded as the loop closer pads them (rows of
+    camera 0 and point 0, invalid) change nothing: poses, points, cost and
+    the inliers over the real rows bit for bit in float64."""
+    problem, fixed = float64_problem(case)
+    o = int(np.nonzero(n(problem.obs_valid))[0].max()) + 1
+    bare = problem._replace(**{f: getattr(problem, f)[:o] for f in FIELDS[3:]})
+    padded = pad_observations(bare, 4096)
+    kw = dict(phase_iters=(5, 5), point_fixed=fixed)
+    want = tba.bundle_adjust_pcg(bare, BA_TCAM, **kw)
+    got = tba.bundle_adjust_pcg(padded, BA_TCAM, **kw)
+    assert torch.equal(got.poses, want.poses) and torch.equal(got.points, want.points)
+    assert torch.equal(got.cost, want.cost)
+    assert torch.equal(got.inlier[:o], want.inlier)
+    assert not n(got.inlier)[o:].any()
 
 
 # ----------------------------------------------------------------------
