@@ -220,14 +220,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             inliers >= 95 %, cost <= 2 x the single-device solve's + 1e-3),
             in float64 to the single-device bundle_adjust_pcg (camera centres
             within 1e-6 m); both costs and each solve's ms. 19b:
-            make_multi_camera_step with 8 sessions at 640x480 / 2000 / 4
+            make_multi_camera_step, the batched step as one program (one
+            CUDA graph per shape), with 8 sessions at 640x480 / 2000 / 4
             levels on worlds built as tests/test_multi_session.py builds
             them: every session above 30 inliers and within 0.05 of the
-            truth, the batched step equal to a loop of single-session steps,
-            2 describe launches a step (8 x 4 levels in tables of 16), the
-            batched tables against the plain version with 0 descriptors
-            differing; ms per batched step against 8 single steps, and the
-            16-level launch timed as in phase 3
+            truth; the replay equal bit for bit to its warm-up, to the
+            program's eager step and to 8 single steps (the program at
+            B = 1); one graph launch a traced step and 2 describe launches
+            counted a replay (8 x 4 levels in tables of 16); the batched
+            tables against the plain version with 0 descriptors differing;
+            then the same readings at B = 1, 4, 8 and 16 (16: the 8 worlds
+            twice): capture ms, replay ms, the eager step's ms, kernels
+            inside a replay, peak memory (and at B = 8 the 8 single steps'
+            ms); the 16-level launch timed as in phase 3
 20. periphery ros_demo's path (LocalTopicBus -> RGBDNode) on phase 5's 60
             frames with SLAMConfig's defaults and the 10 000-word tree, with
             ARViewer, HeadlessViewer (PNG) and LiveViewer(use_gui=False,
@@ -3137,7 +3142,10 @@ DIST_CENTRE_TOL_M = 1e-6
 MULTI_SESSIONS = 8                     # 19b: sessions in one batched step
 SESSION_INLIERS_MIN = 30               # tests/test_multi_session.py's limits
 SESSION_POSE_ERR_MAX = 0.05
-MULTI_TIMED_STEPS = 5                  # batched steps (and loops of single ones) timed
+MULTI_TIMED_STEPS = 5                  # replays of the batched step timed at each B
+MULTI_TIMED_EAGER = 3                  # eager steps and loops of single steps timed
+MULTI_TRACED_REPLAYS = 3               # replays traced, one a profiler session
+MULTI_SWEEP = (1, 4, 8, 16)            # sessions a step in the sweep
 
 
 def _pose_errors(tcw: np.ndarray, gt: np.ndarray) -> np.ndarray:
@@ -3224,35 +3232,119 @@ def check_distributed_gba(tmp) -> dict:
     return entries
 
 
-def check_multi_session() -> dict:
-    """19b: make_multi_camera_step with 8 sessions at 640x480 / 2000 / 4 on
-    per-session worlds built as tests/test_multi_session.py builds them."""
+def _multi_program_at(program, single, inputs, n_tables, b, smi_line):
+    """19b at one B: the program's first call (warm-up and capture), then
+    its replay held to its warm-up and to its eager step (``run``) bit for
+    bit, the describe launches a replay counts, replays traced (graph
+    launches, kernels inside a replay), and the ms of a replay, of the
+    eager step and, at MULTI_SESSIONS, of B single steps (the B = 1
+    program's replays). -> (the readings, the replay's outputs)."""
+    from orbslam2_tpu_torch.tools import frame_step_ab
+
+    sync = torch.cuda.synchronize
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    captures = program.captures
+    warm, capture_ms = _timed(lambda: program(*inputs), sync)
+    if program.captures != captures + 1:
+        fail(f"multi-session: B = {b}: {program.captures - captures} graphs captured by the "
+             "first call")
+    cuda_orb.fused_orient_describe.launches = 0
+    replay = program(*inputs)
+    sync()
+    counted = cuda_orb.fused_orient_describe.launches
+    if counted != n_tables:
+        fail(f"multi-session: B = {b}: {counted} describe launches counted for one replay, "
+             f"expected {n_tables}")
+    eager = program.run(*inputs)
+    sync()
+    same = {name: all(torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                                  y.view(torch.int32) if y.is_floating_point() else y)
+                      for x, y in zip(replay, other))
+            for name, other in (("eager", eager), ("warm-up", warm))}
+    traced = []
+    for _ in range(MULTI_TRACED_REPLAYS):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+            program(*inputs)
+            sync()
+        traced.append(frame_step_ab.window_counts(trace))
+    graphs = [t["graphs"] for t in traced]
+    replay_ms = [_timed(lambda: program(*inputs), sync)[1] for _ in range(MULTI_TIMED_STEPS)]
+    eager_ms = [_timed(lambda: program.run(*inputs), sync)[1] for _ in range(MULTI_TIMED_EAGER)]
+    singles_ms = None
+    if b == MULTI_SESSIONS:
+        singles = lambda: [single(*(x[s] for x in inputs)) for s in range(b)]  # noqa: E731
+        singles()
+        singles_ms = [_timed(singles, sync)[1] for _ in range(MULTI_TIMED_EAGER)]
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    c = traced[0]
+    r = dict(sessions=b, capture_ms=capture_ms, replay_ms=float(np.median(replay_ms)),
+             replay_ms_min=min(replay_ms), eager_ms=float(np.median(eager_ms)),
+             single_steps_ms=float(np.median(singles_ms)) if singles_ms else None,
+             describe_per_replay=counted,
+             graph_launches_per_step=graphs, kernels_per_replay=c["graph_kernels"],
+             launches_outside_per_replay=c["launches"], describe_kernels_traced=c["describe"],
+             device_ms_per_replay=c["device_ms"], peak_memory_above_start_bytes=int(peak),
+             replay_equal_to_eager=same["eager"], replay_equal_to_warm_up=same["warm-up"])
+    print(f"  B = {b}: capture {capture_ms:.1f} ms (warm-up step and capture); a replay "
+          f"median {r['replay_ms']:.2f} ms (min {r['replay_ms_min']:.2f}), the eager batched "
+          f"step {r['eager_ms']:.2f} ms"
+          + (f", {b} single steps {r['single_steps_ms']:.2f} ms" if singles_ms else "")
+          + f" (medians, host clock around synchronised calls); replay = eager step: "
+          f"{same['eager']}, = "
+          f"warm-up: {same['warm-up']}; {graphs} graph launches a traced step, "
+          f"{c['graph_kernels']} kernels inside a replay ({c['describe']} describe), "
+          f"{c['launches']} launched outside it, {c['device_ms']:.2f} ms of device time; "
+          f"{counted} describe launches counted a replay; peak memory "
+          f"{peak / 2**20:.0f} MiB above what the process held before this B (its graph's "
+          f"pool, the eager steps) | {smi_line}", flush=True)
+    if not all(same.values()):
+        fail(f"multi-session: B = {b}: the replay differs from the step ({same})")
+    if graphs != [1] * MULTI_TRACED_REPLAYS or c["describe"] != n_tables:
+        fail(f"multi-session: B = {b}: traced steps made {graphs} graph launches and "
+             f"{c['describe']} describe kernels (expected 1 and {n_tables})")
+    return r, replay
+
+
+def check_multi_session(smi_line) -> dict:
+    """19b: make_multi_camera_step, the batched step as one program, with 8
+    sessions at 640x480 / 2000 / 4 on per-session worlds built as
+    tests/test_multi_session.py builds them, held to its eager step, to the
+    single steps and to the truth; then the sweep over B."""
     cam, orb_cfg, cap, b = (dryrun.SESSION_CAM, dryrun.SESSION_ORB, dryrun.SESSION_CAP,
                             MULTI_SESSIONS)
-    n_tables = -(-b * orb_cfg.n_levels // cuda_orb.MAX_LEVELS)
-    print(f"[multi-session] make_multi_camera_step, {b} sessions at {geometry(cam, orb_cfg)}, "
-          f"local maps of {cap} points, {n_tables} describe launches a step", flush=True)
+    tables_at = lambda k: -(-k * orb_cfg.n_levels // cuda_orb.MAX_LEVELS)  # noqa: E731
+    n_tables = tables_at(b)
+    print(f"[multi-session] make_multi_camera_step as one program, {b} sessions at "
+          f"{geometry(cam, orb_cfg)}, local maps of {cap} points, {n_tables} describe "
+          f"launches a step; B = {MULTI_SWEEP}", flush=True)
     t0 = time.perf_counter()
-    inputs, gts = dryrun.session_worlds(cam, orb_cfg, b, cap, CARD)
+    worlds, gts = dryrun.session_worlds(cam, orb_cfg, b, cap, CARD)
     worlds_s = time.perf_counter() - t0
-    step = make_multi_camera_step(cam, orb_cfg, cap, CARD)
+    program = make_multi_camera_step(cam, orb_cfg, cap, CARD)
     single = make_single_camera_step(cam, orb_cfg, cap, CARD)
-    step(*inputs)
-    torch.cuda.synchronize()
-    cuda_orb.fused_orient_describe.launches = 0
-    tcw, n_in = step(*inputs)
-    torch.cuda.synchronize()
-    launches = cuda_orb.fused_orient_describe.launches
-    if launches != n_tables:
-        fail(f"multi-session: {launches} describe launches for one step, expected {n_tables}")
-    tcw, n_in = tcw.cpu().numpy(), n_in.cpu().numpy()
+    sweep, main = [], None
+    for k in MULTI_SWEEP:
+        # B above the worlds built repeats them (B = 16: each world twice)
+        inputs = tuple(torch.cat([x] * -(-k // b))[:k] for x in worlds)
+        r, replay = _multi_program_at(program, single, inputs, tables_at(k), k, smi_line)
+        sweep.append(r)
+        if k == b:
+            main = r
+            tcw, n_in = (x.cpu().numpy() for x in replay)
+            singles = [single(*(x[s] for x in worlds)) for s in range(b)]
+            same = all(np.array_equal(t.cpu().numpy().view(np.int32), tcw[s].view(np.int32))
+                       and int(n) == int(n_in[s]) for s, (t, n) in enumerate(singles))
+    if program.captures != len(MULTI_SWEEP) or single.program.captures != 1:
+        fail(f"multi-session: {program.captures} graphs for {len(MULTI_SWEEP)} shapes, "
+             f"{single.program.captures} for the single step")
+    launches = main["describe_per_replay"]
     errors = _pose_errors(tcw, gts)
-    singles = [single(*(x[s] for x in inputs)) for s in range(b)]
-    same = all(np.array_equal(t.cpu().numpy(), tcw[s]) and int(n) == int(n_in[s])
-               for s, (t, n) in enumerate(singles))
     # the batched tables against the plain version
     ex = orb.get_extractor(orb_cfg, (cam.height, cam.width), CARD)
-    per_image = [ex._levels(img) for img in inputs[0]]
+    per_image = [ex._levels(img) for img in worlds[0]]
     fields = [sum((list(lv[i]) for lv in per_image), []) for i in range(4)]
     budgets = list(ex.level_budgets) * b
     tables = [(*(f[lo:lo + cuda_orb.MAX_LEVELS] for f in fields), ex.pattern_t,
@@ -3266,21 +3358,11 @@ def check_multi_session() -> dict:
         d = torch.atan2(torch.sin(k_out[0] - p_out[0]), torch.cos(k_out[0] - p_out[0])).abs()
         angle_err = max(angle_err, float(d.max()))
         n_slots += k_out[1].shape[0]
-    # ms per batched step against a loop of single steps, in turns
-    sync = torch.cuda.synchronize
-    batched_ms, singles_ms = [], []
-    for _ in range(MULTI_TIMED_STEPS):
-        batched_ms.append(_timed(lambda: step(*inputs), sync)[1])
-        singles_ms.append(_timed(lambda: [single(*(x[s] for x in inputs)) for s in range(b)],
-                                 sync)[1])
-    print(f"  inliers per session {n_in.tolist()} (each > {SESSION_INLIERS_MIN}); pose errors "
-          f"{np.round(errors, 5).tolist()} (each < {SESSION_POSE_ERR_MAX}); batched = single-"
-          f"session steps: {same}; describe launches {launches} a step; batched tables "
-          f"against the plain version: {n_differ} of {n_slots} descriptors differ (must be 0), "
-          f"max angle difference {angle_err:.2e} rad; one batched step {np.median(batched_ms):.1f}"
-          f" ms against {np.median(singles_ms):.1f} ms for {b} single steps (medians of "
-          f"{MULTI_TIMED_STEPS}, host clock around synchronised calls); worlds built in "
-          f"{worlds_s:.1f} s", flush=True)
+    print(f"  B = {b}: inliers per session {n_in.tolist()} (each > {SESSION_INLIERS_MIN}); "
+          f"pose errors {np.round(errors, 5).tolist()} (each < {SESSION_POSE_ERR_MAX}); the "
+          f"replay = {b} single steps: {same}; batched tables against the plain version: "
+          f"{n_differ} of {n_slots} descriptors differ (must be 0), max angle difference "
+          f"{angle_err:.2e} rad; worlds built in {worlds_s:.1f} s", flush=True)
     if not (n_in > SESSION_INLIERS_MIN).all():
         fail(f"multi-session: inliers {n_in.tolist()}")
     if not (errors < SESSION_POSE_ERR_MAX).all():
@@ -3305,8 +3387,8 @@ def check_multi_session() -> dict:
     return dict(launches=launches, launches_per_step=launches, sessions=b,
                 inliers=n_in.tolist(), pose_errors=errors.tolist(), equal_to_single=same,
                 descriptors_differing=n_differ, max_abs_err=angle_err,
-                batched_step_ms=float(np.median(batched_ms)),
-                single_steps_ms=float(np.median(singles_ms)), describe=dict(
+                batched_step_ms=main["replay_ms"], eager_step_ms=main["eager_ms"],
+                single_steps_ms=main["single_steps_ms"], sweep=sweep, describe=dict(
                     max_abs_err=angle_err, descriptors_differing=n_differ, **times,
                     ms_covers="one launch over one table of the batched step: 4 sessions' 4 "
                               "levels at 640x480 (the step makes two), timed by CUDA events "
@@ -3892,13 +3974,18 @@ def run_phase(fn, *args, **kw):
     PHASE_LIMIT_S (or by DEADLINE_S after the start, whichever is sooner),
     faulthandler prints the stack of every thread and the process exits
     with code 1. A hang shows where it hangs instead of running on silently
-    into the caller's time limit."""
+    into the caller's time limit. Prints the phase's seconds and the
+    seconds since the start when it returns."""
     limit = min(PHASE_LIMIT_S, DEADLINE_S - (time.monotonic() - _START))
     faulthandler.dump_traceback_later(max(limit, 30.0), exit=True)
+    t0 = time.monotonic()
     try:
-        return fn(*args, **kw)
+        out = fn(*args, **kw)
     finally:
         faulthandler.cancel_dump_traceback_later()
+    print(f"[phase time] {getattr(fn, '__name__', 'phase')}: {time.monotonic() - t0:.1f} s, "
+          f"{time.monotonic() - _START:.1f} s since the start", flush=True)
+    return out
 
 
 def main() -> None:
@@ -3986,7 +4073,7 @@ def main() -> None:
                                       stereo_frames, defaults_k1["ate_m"], tmp)
         # ---- phase 19: distributed global BA, batched multi-session ----
         gba_parallel = run_phase(check_distributed_gba, tmp)
-        multi = run_phase(check_multi_session)
+        multi = run_phase(check_multi_session, smi_line)
         # ---- phase 20: the ROS-style node, the viewers, the AR overlay ----
         periphery = run_phase(drive_periphery, cam, orb_cfg, seq, frames,
                               place_system.vocabulary, tmp)

@@ -18,7 +18,7 @@ from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.ops import hamming, match
 from orbslam2_tpu_torch.ops.orb import Keypoints
 from orbslam2_tpu_torch.backend import pose_opt
-from orbslam2_tpu_torch.utils import graph_capture
+from orbslam2_tpu_torch.utils import fixed_order, graph_capture
 
 
 class FrustumInfo(NamedTuple):
@@ -33,8 +33,8 @@ def _in_image(uv: torch.Tensor, cam: PinholeCamera) -> torch.Tensor:
     undistorted, so on distorted cameras valid projections can land outside
     [0, width)."""
     min_x, max_x, min_y, max_y = cam.undistorted_bounds()
-    return ((uv[:, 0] >= min_x) & (uv[:, 0] < max_x)
-            & (uv[:, 1] >= min_y) & (uv[:, 1] < max_y))
+    return ((uv[..., 0] >= min_x) & (uv[..., 0] < max_x)
+            & (uv[..., 1] >= min_y) & (uv[..., 1] < max_y))
 
 
 def frustum_check(
@@ -50,14 +50,22 @@ def frustum_check(
     view_cos_limit: float = 0.5,
 ) -> FrustumInfo:
     """Frame::isInFrustum for all candidate points at once: positive depth,
-    inside image, distance within scale band, viewing angle < 60 deg."""
-    pc = se3.apply(tcw, pt_pos)
+    inside image, distance within scale band, viewing angle < 60 deg.
+    With a session axis (tcw [B, 4, 4], points [B, C, ...]) the sums run in
+    ``fixed_order``, so a session's bits do not depend on B."""
+    if tcw.dim() == 2:
+        pc = se3.apply(tcw, pt_pos)
+        rays = pt_pos - se3.camera_center(tcw)[None, :]
+        dist = torch.linalg.norm(rays, dim=-1)
+        along = torch.sum(rays * pt_normal, dim=-1)
+    else:
+        pc = fixed_order.apply(tcw, pt_pos)
+        rays = pt_pos - fixed_order.camera_center(tcw)[..., None, :]
+        dist = torch.sqrt(fixed_order.dot(rays, rays))
+        along = fixed_order.dot(rays, pt_normal)
     uv, z = cam.project(pc)
-    ow = se3.camera_center(tcw)
-    rays = pt_pos - ow[None, :]
-    dist = torch.linalg.norm(rays, dim=-1)
     in_band = (dist >= 0.8 * pt_min_dist) & (dist <= 1.2 * pt_max_dist)
-    view_cos = torch.sum(rays * pt_normal, dim=-1) / torch.clamp(dist, min=1e-9)
+    view_cos = along / torch.clamp(dist, min=1e-9)
     pred_level = match.predict_scale_level(dist, pt_max_dist, scale_factor, n_levels)
     visible = pt_valid & (z > 0.05) & _in_image(uv, cam) & in_band \
         & (view_cos > view_cos_limit)
@@ -83,7 +91,8 @@ def search_local_points(
     """Project local map points and match to free keypoints.
 
     Radius per point: 2.5 px if viewed head-on (viewCos > 0.998) else 4.0,
-    scaled by the predicted octave and `radius_mult`.
+    scaled by the predicted octave and `radius_mult`. Takes a leading
+    session axis on every tensor, as ``frustum_check`` does.
     -> (FrustumInfo, WindowedMatches over the full candidate array).
     """
     info = frustum_check(tcw, pt_pos, pt_valid, pt_normal, pt_min_dist, pt_max_dist,
@@ -493,55 +502,124 @@ def _clone_out(out: FusedFrameOut) -> FusedFrameOut:
 @dataclasses.dataclass
 class _Captured:
     """One captured graph: its input and output buffers, the describe
-    launches one replay makes, and the mirror tensors last copied in."""
+    launches one replay makes, and the tensors last copied in."""
     graph: "torch.cuda.CUDAGraph"
     inputs: list
-    outputs: FusedFrameOut
+    outputs: object
     describe_launches: int
-    mirror: list
+    sources: list
 
 
-class FrameProgram:
-    """The fused whole-frame step of one sensor as one program: the
-    counterpart of the JAX package's jitted ``_fused_*_program``.
+class StepProgram:
+    """A step as one program, as ``jax.jit`` makes one XLA program of it.
+
+    On the CPU a call is the eager step. On a card the first call for a key
+    (the inputs' shapes and dtypes, and what the subclass adds) runs the
+    step in its capture form (no host read) on a side stream of the
+    program's own, returns those outputs and captures the same step into a
+    ``torch.cuda.CUDAGraph`` there (through ``graph_capture.capture``);
+    every later call copies its inputs into the graph's buffers on the
+    current stream, replays the graph there and returns copies of its
+    outputs, which a later replay leaves alone. A new key captures a new
+    graph, as ``jax.jit`` traces again. A graph's buffers are not
+    reentrant: one caller owns a program. A capture or a replay that fails
+    raises; nothing falls back to the eager step.
+
+    ``replays`` counts the replays; each adds the describe launches it
+    holds to ``cuda_orb.fused_orient_describe.launches``, which no wrapper
+    call counts inside a graph.
+
+    A subclass gives ``_step(inputs, extra)``, the step's capture form on
+    the flat list of input tensors, and ``_tensors(out)`` and
+    ``_clone(out)`` for its outputs."""
+
+    def __init__(self):
+        self._graphs: dict = {}
+        self._stream = None
+        self.replays = 0
+
+    @property
+    def captures(self) -> int:
+        return len(self._graphs)
+
+    def _program(self, flat: list, extra=()):
+        """The step through its graph for these inputs (on a card)."""
+        key = (extra,) + tuple((tuple(x.shape), x.dtype) for x in flat)
+        with torch.cuda.device(flat[0].device):
+            captured = self._graphs.get(key)
+            if captured is None:
+                return self._capture(key, flat, extra)
+            return self._replay(captured, flat)
+
+    def _capture(self, key, flat, extra):
+        from orbslam2_tpu_torch.ops import cuda_orb
+
+        inputs = [x.clone() for x in flat]
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        side, current = self._stream, torch.cuda.current_stream()
+        # warm-up on the capture stream (library handles and workspaces are
+        # made outside the capture): the call's own outputs
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self._step(inputs, extra)
+        current.wait_stream(side)
+        for t in self._tensors(out):
+            t.record_stream(current)
+        counted = cuda_orb.fused_orient_describe.launches
+        captured = {}
+
+        def step():
+            captured["outputs"] = self._step(inputs, extra)
+
+        # thread_local: the mapping worker goes on queueing work on its own
+        # stream while this thread captures
+        graph = graph_capture.capture({"step": step}, side)[0]["step"]
+        held = cuda_orb.fused_orient_describe.launches - counted
+        cuda_orb.fused_orient_describe.launches = counted   # a capture runs nothing
+        self._graphs[key] = _Captured(graph, inputs, captured["outputs"], held, list(flat))
+        return out
+
+    def _copy_in(self, captured: _Captured, flat: list) -> None:
+        for dst, src in zip(captured.inputs, flat):
+            dst.copy_(src)
+
+    def _replay(self, captured: _Captured, flat: list):
+        from orbslam2_tpu_torch.ops import cuda_orb
+
+        self._copy_in(captured, flat)
+        captured.sources = list(flat)
+        captured.graph.replay()
+        self.replays += 1
+        cuda_orb.fused_orient_describe.launches += captured.describe_launches
+        return self._clone(captured.outputs)
+
+
+class FrameProgram(StepProgram):
+    """The fused whole-frame step of one sensor as one program
+    (``StepProgram``): the counterpart of the JAX package's jitted
+    ``_fused_*_program``.
 
     Called with the images, then the arguments of ``_fused_track_core``
     after the frame's own (``tcw_pred`` a pose or a ``(velocity, tcw_prev)``
     pair, ``last_kp``, ``last_pid``, ``local_ids``, ``local_sel``,
     ``radius_mult``, the six mirror tensors). On the CPU a call is the eager
-    step (``run``). On a card the first call for a set of input shapes runs
-    the step in its capture form (no host read), returns those outputs and
-    captures the same step into a ``torch.cuda.CUDAGraph`` on a side stream
-    of the program's own; every later call copies its inputs into the
-    graph's buffers on the current stream, replays the graph there and
-    returns copies of its outputs, which a later replay leaves alone. The
-    mirror tensors are copied only when the mirror replaced them (a sync
-    never writes them in place). A new shape captures a new graph, as
-    ``jax.jit`` traces again. A graph's buffers are not reentrant, so each
-    tracker owns its programs (``fused_frame_step(..., programs=)``), and a
-    deep copy of a program is a new program with no graph. A capture or a
-    replay that fails raises; nothing falls back to the eager step.
-
-    ``replays`` counts the replays; each adds the describe launches it
-    holds (one) to ``cuda_orb.fused_orient_describe.launches``, which no
-    wrapper call counts inside a graph."""
+    step (``run``). A replay copies the mirror tensors only when the mirror
+    replaced them (a sync never writes them in place). Each tracker owns
+    its programs (``fused_frame_step(..., programs=)``), and a deep copy of
+    a program is a new program with no graph. A replay holds one describe
+    launch."""
 
     def __init__(self, kind, extractor, cam, scale_factor, n_levels):
+        super().__init__()
         self.kind = kind
         self.n_images = 1 if kind == "mono" else 2
         self.extractor, self.cam = extractor, cam
         self.scale_factor, self.n_levels = scale_factor, n_levels
-        self._graphs: dict = {}
-        self._stream = None
-        self.replays = 0
 
     def __deepcopy__(self, memo):
         return type(self)(self.kind, self.extractor, self.cam, self.scale_factor,
                           self.n_levels)
-
-    @property
-    def captures(self) -> int:
-        return len(self._graphs)
 
     def run(self, *args, host_reads=None) -> FusedFrameOut:
         """The step, eagerly: frame build, then `_fused_track_core`."""
@@ -554,16 +632,10 @@ class FrameProgram:
             self.scale_factor, self.n_levels, host_reads=host_reads)
 
     def __call__(self, *args) -> FusedFrameOut:
-        dev = args[0].device
-        if dev.type != "cuda":
+        if args[0].device.type != "cuda":
             return self.run(*args)
         flat, pair = self._flatten(args)
-        key = (pair,) + tuple((tuple(x.shape), x.dtype) for x in flat)
-        with torch.cuda.device(dev):
-            captured = self._graphs.get(key)
-            if captured is None:
-                return self._capture(key, flat, pair)
-            return self._replay(captured, flat)
+        return self._program(flat, pair)
 
     def _flatten(self, args):
         """-> (the inputs as one list of tensors, ids as int64 and the
@@ -586,51 +658,23 @@ class FrameProgram:
         kp = Keypoints(**dict(zip(_KP_FIELDS, flat[i:i + len(_KP_FIELDS)])))
         return (*flat[:self.n_images], pred, kp, *flat[i + len(_KP_FIELDS):])
 
-    def _capture(self, key, flat, pair) -> FusedFrameOut:
-        from orbslam2_tpu_torch.ops import cuda_orb
+    def _step(self, inputs, pair) -> FusedFrameOut:
+        return self.run(*self._unflatten(inputs, pair), host_reads=False)
 
-        inputs = [x.clone() for x in flat]
-        if self._stream is None:
-            self._stream = torch.cuda.Stream()
-        side, current = self._stream, torch.cuda.current_stream()
-        # warm-up on the capture stream (library handles and workspaces are
-        # made outside the capture): the frame's own outputs
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            out = self.run(*self._unflatten(inputs, pair), host_reads=False)
-        current.wait_stream(side)
-        for t in _out_tensors(out).values():
-            t.record_stream(current)
-        counted = cuda_orb.fused_orient_describe.launches
-        captured = {}
+    def _tensors(self, out: FusedFrameOut):
+        return _out_tensors(out).values()
 
-        def step():
-            captured["outputs"] = self.run(*self._unflatten(inputs, pair), host_reads=False)
+    def _clone(self, out: FusedFrameOut) -> FusedFrameOut:
+        return _clone_out(out)
 
-        # thread_local: the mapping worker goes on queueing work on its own
-        # stream while this thread captures
-        graph = graph_capture.capture({"step": step}, side)[0]["step"]
-        outputs = captured["outputs"]
-        held = cuda_orb.fused_orient_describe.launches - counted
-        cuda_orb.fused_orient_describe.launches = counted   # a capture runs nothing
-        self._graphs[key] = _Captured(graph, inputs, outputs, held, flat[-6:])
-        return out
-
-    def _replay(self, captured: _Captured, flat) -> FusedFrameOut:
-        from orbslam2_tpu_torch.ops import cuda_orb
-
-        n_mirror = len(captured.mirror)
+    def _copy_in(self, captured: _Captured, flat: list) -> None:
+        n_mirror = 6
         for dst, src in zip(captured.inputs[:-n_mirror], flat[:-n_mirror]):
             dst.copy_(src)
         for dst, src, held in zip(captured.inputs[-n_mirror:], flat[-n_mirror:],
-                                  captured.mirror):
+                                  captured.sources[-n_mirror:]):
             if src is not held:
                 dst.copy_(src)
-        captured.mirror = flat[-n_mirror:]
-        captured.graph.replay()
-        self.replays += 1
-        cuda_orb.fused_orient_describe.launches += captured.describe_launches
-        return _clone_out(captured.outputs)
 
 
 def _fused_rgbd_program(extractor, cam, scale_factor, n_levels) -> FrameProgram:
@@ -679,8 +723,9 @@ def build_pose_obs_from_frame(
     scale_factor: float = 1.2,
 ) -> pose_opt.PoseObs:
     """Assemble the pose-optimization observation set from per-keypoint
-    associations (stereo rows where uR >= 0)."""
-    uv3 = torch.cat([frame_kp.xy, frame_ur[:, None]], dim=-1)
+    associations (stereo rows where uR >= 0); takes a leading session
+    axis."""
+    uv3 = torch.cat([frame_kp.xy, frame_ur[..., None]], dim=-1)
     inv_sigma2 = (1.0 / scale_factor ** 2) ** frame_kp.octave.to(torch.float32)
     return pose_opt.PoseObs(
         pts_w=matched_pt_pos,

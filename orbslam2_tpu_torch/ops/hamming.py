@@ -41,14 +41,15 @@ def distance_matrix(
     """All-pairs Hamming distance.
 
     desc_a: [N, 8], desc_b: [M, 8] int32 -> [N, M] int32 in [0, 256];
-    invalid rows/cols get INVALID_DIST.
+    invalid rows/cols get INVALID_DIST. Leading (session) axes batch: the
+    product's sums are integers below 2^24, exact in any order.
     """
-    dot = to_pm1(desc_a) @ to_pm1(desc_b).T
+    dot = to_pm1(desc_a) @ to_pm1(desc_b).transpose(-1, -2)
     dist = ((DESC_BITS - dot) * 0.5).to(torch.int32)
     if valid_a is not None:
-        dist = torch.where(valid_a[:, None], dist, INVALID_DIST)
+        dist = torch.where(valid_a[..., :, None], dist, INVALID_DIST)
     if valid_b is not None:
-        dist = torch.where(valid_b[None, :], dist, INVALID_DIST)
+        dist = torch.where(valid_b[..., None, :], dist, INVALID_DIST)
     return dist
 
 
@@ -62,18 +63,19 @@ def best_and_second(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-row best match with second-best distance for the ratio test.
 
-    dist: [N, M]; mask: [N, M] bool of admissible pairs.
-    -> (best_idx [N] int64, best_dist [N] int32, second_dist [N] int32).
-    Rows with no admissible pair get best_dist = INVALID_DIST. Ties go to
-    the lowest column (``torch.min`` over a dim returns the first minimum).
+    dist: [N, M]; mask: [N, M] bool of admissible pairs (leading axes
+    batch). -> (best_idx [N] int64, best_dist [N] int32, second_dist [N]
+    int32). Rows with no admissible pair get best_dist = INVALID_DIST. Ties
+    go to the lowest column (``torch.min`` over a dim returns the first
+    minimum).
     """
     if mask is not None:
         dist = torch.where(mask, dist, INVALID_DIST)
-    best, best_idx = torch.min(dist, dim=1)
+    best, best_idx = torch.min(dist, dim=-1)
     second = torch.min(
-        dist.scatter(1, best_idx[:, None],
-                     torch.full_like(best_idx[:, None], INVALID_DIST, dtype=dist.dtype)),
-        dim=1).values
+        dist.scatter(-1, best_idx[..., None],
+                     torch.full_like(best_idx[..., None], INVALID_DIST, dtype=dist.dtype)),
+        dim=-1).values
     return best_idx, best, second
 
 

@@ -2,7 +2,10 @@
 
 Counterpart of ``orbslam2_tpu/ops/match.py``: the whole candidate relation
 is one dense [P, N] Hamming matrix AND-ed with spatial / pyramid / validity
-masks.
+masks. Every function also takes a leading session axis on each of its
+tensors ([B, P, ...] queries against [B, N, ...] keypoints), as ``jax.vmap``
+gives the JAX functions one; a session never matches another's keypoints,
+and its integers are the ones it gets alone.
 """
 from __future__ import annotations
 
@@ -44,16 +47,16 @@ def windowed_match(
     """
     dist = hamming.distance_matrix(query_desc, kp.desc, query_valid, kp.valid)  # [P, N]
 
-    du = query_uv[:, 0:1] - kp.xy[None, :, 0]
-    dv = query_uv[:, 1:2] - kp.xy[None, :, 1]
-    in_window = (torch.abs(du) <= query_radius[:, None]) & (
-        torch.abs(dv) <= query_radius[:, None])
-    in_level = (kp.octave[None, :] >= query_level_lo[:, None]) & (
-        kp.octave[None, :] <= query_level_hi[:, None]
-    )
-    mask = in_window & in_level & kp.valid[None, :] & query_valid[:, None]
+    du = query_uv[..., :, 0:1] - kp.xy[..., None, :, 0]
+    dv = query_uv[..., :, 1:2] - kp.xy[..., None, :, 1]
+    radius = query_radius[..., :, None]
+    in_window = (torch.abs(du) <= radius) & (torch.abs(dv) <= radius)
+    octave = kp.octave[..., None, :]
+    in_level = (octave >= query_level_lo[..., :, None]) & (
+        octave <= query_level_hi[..., :, None])
+    mask = in_window & in_level & kp.valid[..., None, :] & query_valid[..., :, None]
     if kp_free is not None:
-        mask = mask & kp_free[None, :]
+        mask = mask & kp_free[..., None, :]
 
     best_j, best_d, second_d = hamming.best_and_second(dist, mask)
     ok = best_d <= max_dist
@@ -63,8 +66,8 @@ def windowed_match(
     best_dist = torch.where(ok, best_d, INVALID_DIST)
     assoc = resolve_conflicts(best_kp, best_dist, kp.n)
     # drop queries that lost their keypoint to a closer query
-    p = query_uv.shape[0]
-    won = (best_kp >= 0) & (assoc[best_kp.clamp(0, kp.n - 1)]
+    p = query_uv.shape[-2]
+    won = (best_kp >= 0) & (torch.gather(assoc, -1, best_kp.clamp(0, kp.n - 1))
                             == torch.arange(p, device=best_kp.device))
     return WindowedMatches(
         best_kp=torch.where(won, best_kp, -1),
@@ -76,21 +79,24 @@ def windowed_match(
 def resolve_conflicts(best_kp: torch.Tensor, best_dist: torch.Tensor, n_kp: int) -> torch.Tensor:
     """Scatter-min conflict resolution: for each keypoint, the query with the
     smallest distance wins (ties -> lowest query index). -> [N] int64.
-    Queries without a keypoint are dumped in an overflow slot ``n_kp``."""
-    p = best_kp.shape[0]
+    Queries without a keypoint are dumped in an overflow slot ``n_kp``.
+    With a session axis ([B, P] -> [B, N]) each session scatters into its
+    own row of the table, so no session's query wins another's keypoint."""
+    p = best_kp.shape[-1]
     dev = best_kp.device
     best_kp = best_kp.long()
     valid = best_kp >= 0
     tgt = torch.where(valid, best_kp, n_kp)
     d = torch.where(valid, best_dist, INVALID_DIST).to(torch.int64)
-    per_kp_best = torch.full((n_kp + 1,), INVALID_DIST, dtype=torch.int64, device=dev)
-    per_kp_best = per_kp_best.scatter_reduce(0, tgt, d, reduce="amin")
-    is_winner = valid & (d == per_kp_best[tgt])
-    qidx = torch.arange(p, dtype=torch.int64, device=dev)
-    per_kp_query = torch.full((n_kp + 1,), p, dtype=torch.int64, device=dev)
+    table = best_kp.shape[:-1] + (n_kp + 1,)
+    per_kp_best = torch.full(table, INVALID_DIST, dtype=torch.int64, device=dev)
+    per_kp_best = per_kp_best.scatter_reduce(-1, tgt, d, reduce="amin")
+    is_winner = valid & (d == torch.gather(per_kp_best, -1, tgt))
+    qidx = torch.arange(p, dtype=torch.int64, device=dev).expand(best_kp.shape)
+    per_kp_query = torch.full(table, p, dtype=torch.int64, device=dev)
     per_kp_query = per_kp_query.scatter_reduce(
-        0, torch.where(is_winner, tgt, n_kp), qidx, reduce="amin")
-    assoc = per_kp_query[:n_kp]
+        -1, torch.where(is_winner, tgt, n_kp), qidx, reduce="amin")
+    assoc = per_kp_query[..., :n_kp]
     return torch.where(assoc < p, assoc, -1)
 
 

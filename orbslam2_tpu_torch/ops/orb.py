@@ -65,7 +65,8 @@ class ORBConfig:
 
 @dataclasses.dataclass
 class Keypoints:
-    """Fixed-capacity keypoint set for one image (SoA, masked)."""
+    """Fixed-capacity keypoint set for one image (SoA, masked); several
+    images' sets stacked carry a leading session axis (``stack``)."""
     xy: torch.Tensor        # [N, 2] float32, level-0 pixel coords (x, y)
     response: torch.Tensor  # [N] float32
     angle: torch.Tensor     # [N] float32 radians
@@ -79,7 +80,14 @@ class Keypoints:
 
     @property
     def n(self) -> int:
-        return self.xy.shape[0]
+        return self.xy.shape[-2]
+
+    @staticmethod
+    def stack(kps) -> "Keypoints":
+        """Keypoint sets of one capacity on a leading session axis: every
+        field [B, N, ...]."""
+        return Keypoints(**{f.name: torch.stack([getattr(kp, f.name) for kp in kps])
+                            for f in dataclasses.fields(Keypoints)})
 
 
 def make_pattern(seed: int) -> np.ndarray:

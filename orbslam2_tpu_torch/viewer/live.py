@@ -53,6 +53,7 @@ class LiveViewer:
         self._drawn_id = -1
         self._lock = threading.Lock()
         self._stop = threading.Event()
+        self._rendered = threading.Condition()
         self.n_rendered = 0
         self.last_frame_img: Optional[np.ndarray] = None
         self.last_map_img: Optional[np.ndarray] = None
@@ -78,6 +79,12 @@ class LiveViewer:
         with self._lock:
             self._latest = np.asarray(gray, np.float32).copy()
             self._latest_id += 1
+
+    def wait_rendered(self, count: int, timeout: float) -> bool:
+        """Wait until ``count`` frames have been rendered, at most
+        ``timeout`` seconds. -> whether they have."""
+        with self._rendered:
+            return self._rendered.wait_for(lambda: self.n_rendered >= count, timeout)
 
     def close(self) -> None:
         """Viewer::RequestFinish + join (Viewer.cc:198-216)."""
@@ -134,11 +141,13 @@ class LiveViewer:
         self.last_frame_img = img
         if map_img is not None:
             self.last_map_img = map_img
-        self.n_rendered += 1
         if self._gui:
             self._show(img, map_img)
         else:
             self._publish(img, map_img)
+        with self._rendered:
+            self.n_rendered += 1
+            self._rendered.notify_all()
 
     def _on_mouse(self, event, x, y, flags, _param) -> None:
         """Pangolin-style orbit/pan/zoom on the map window."""

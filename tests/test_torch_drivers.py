@@ -189,16 +189,3 @@ def test_drivers_have_the_jax_flags_and_device(monkeypatch):
     assert ours == theirs | {"--device"}
     args = common.build_parser("x").parse_args(["s.yaml"])
     assert args.device == "cuda" and not args.viewer and args.viewer_dir == "."
-
-
-@pytest.mark.parametrize("name", sorted(DRIVERS))
-def test_a_driver_without_a_card_raises(name, tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the default device is usable here")
-    module, n_positional = DRIVERS[name]
-    settings = tmp_path / "settings.yaml"
-    settings.write_text(SETTINGS_YAML)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        module.main([str(settings), *[str(tmp_path)] * n_positional,
-                     *_outputs(tmp_path, name)])
-    assert not os.path.exists(tmp_path / f"{name}.txt")

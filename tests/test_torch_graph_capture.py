@@ -47,6 +47,7 @@ def test_a_port_thread_takes_its_turn_only_inside_a_call_which_waits_for_it():
     assert returned.wait(WAIT_S) and done.wait(WAIT_S)
     worker.join(WAIT_S)
     caller.join(WAIT_S)
+    assert not worker.is_alive() and not caller.is_alive()
     assert graph_capture._calls == graph_capture._captures == graph_capture._waiting == 0
 
 

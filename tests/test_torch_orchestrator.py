@@ -31,9 +31,11 @@ class StandInMapper:
         self.fail_on = fail_on
         self.release = threading.Event()
         self.release.set()
+        self.started = threading.Event()
         self.pending_fn = None
 
     def process_keyframe(self, kf, backlog=False):
+        self.started.set()
         self.release.wait(10)
         if kf == self.fail_on:
             raise ValueError(f"stage failed on keyframe {kf}")
@@ -65,8 +67,7 @@ def test_accept_keyframes_caps_the_queue_at_three():
     mapper.release.clear()
     worker = MappingWorker(mapper)
     worker.insert_keyframe(0)
-    while worker.queue_size():          # the worker took keyframe 0
-        threading.Event().wait(0.001)
+    assert mapper.started.wait(10), "the worker did not take keyframe 0"
     for kf in (1, 2):
         worker.insert_keyframe(kf)
         assert worker.accept_keyframes()

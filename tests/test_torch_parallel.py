@@ -9,8 +9,13 @@
 - ``parallel/multi_session.py::make_multi_camera_step`` at
   ``test_multi_session.py``'s 160x120, 300 features, 2 levels, B = 8, held
   to the JAX step on the same numpy inputs and, exactly, to the port's
-  single-session step.
+  single-session step; its parts on the session axis (frustum check,
+  windowed match and conflict resolution, pose LM) each held, exactly, to
+  the same part for one session, and ``utils/fixed_order.py`` to the
+  library's arithmetic.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,12 +27,16 @@ from orbslam2_tpu.geometry.camera import PinholeCamera as JCamera
 from orbslam2_tpu.parallel import dist_ba as jdist_ba
 from orbslam2_tpu.parallel.mesh import make_mesh
 from orbslam2_tpu.parallel.multi_session import make_multi_camera_step as jmake_step
-from orbslam2_tpu_torch.backend import ba
+from orbslam2_tpu_torch.backend import ba, pose_opt
+from orbslam2_tpu_torch.frontend import kernels
+from orbslam2_tpu_torch.geometry import se3
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
-from orbslam2_tpu_torch.ops.orb import ORBConfig
+from orbslam2_tpu_torch.ops import match
+from orbslam2_tpu_torch.ops.orb import ORBConfig, ORBExtractor, Keypoints
 from orbslam2_tpu_torch.parallel import dryrun, mesh
-from orbslam2_tpu_torch.parallel.multi_session import (make_multi_camera_step,
+from orbslam2_tpu_torch.parallel.multi_session import (MAX_HAMMING, make_multi_camera_step,
                                                        make_single_camera_step)
+from orbslam2_tpu_torch.utils import fixed_order
 from test_ba import make_ba_problem, pose_errors
 from test_dist_ba import pad_obs_to
 
@@ -176,6 +185,7 @@ def test_group_errors():
 SESSION_CAM = PinholeCamera(fx=130.0, fy=130.0, cx=80.0, cy=60.0, width=160, height=120,
                             bf=13.0)
 SESSION_ORB = ORBConfig(n_features=300, n_levels=2)
+KP_FIELDS = tuple(f.name for f in dataclasses.fields(Keypoints))
 LOCAL_CAP = 512
 B = 8
 SESSION_POSE_ERR_MAX = 0.05    # test_multi_session.py's
@@ -193,7 +203,6 @@ def sessions():
 
 
 def test_batched_step_tracks_every_session(sessions):
-    from orbslam2_tpu_torch.geometry import se3
     inputs, gts, (tcw, n_in) = sessions
     assert tcw.shape == (B, 4, 4) and n_in.shape == (B,)
     assert (n_in > SESSION_INLIERS_MIN).all(), n_in
@@ -222,3 +231,157 @@ def test_batched_step_matches_jax(sessions):
     jtcw, jn_in = jstep(*(jnp.asarray(x) for x in np_in))
     np.testing.assert_allclose(tcw.numpy(), np.asarray(jtcw), atol=JAX_SESSION_ATOL)
     np.testing.assert_array_equal(n_in.numpy(), np.asarray(jn_in))
+
+
+# --------------------------------------------------------------------------
+# the batched step's parts on a session axis
+# --------------------------------------------------------------------------
+def _session(x, s):
+    """Session s of a batched Keypoints, PoseObs or tensor, without the axis."""
+    if isinstance(x, Keypoints):
+        return Keypoints(**{f: getattr(x, f)[s] for f in KP_FIELDS})
+    if isinstance(x, pose_opt.PoseObs):
+        return pose_opt.PoseObs(*(f[s] for f in x))
+    return x[s]
+
+
+def _sessions_at(x, idx):
+    """Sessions ``idx`` (a list) of a batched Keypoints, PoseObs or tensor."""
+    if isinstance(x, Keypoints):
+        return Keypoints(**{f: getattr(x, f)[idx] for f in KP_FIELDS})
+    if isinstance(x, pose_opt.PoseObs):
+        return pose_opt.PoseObs(*(f[idx] for f in x))
+    return x[idx]
+
+
+@pytest.fixture(scope="module")
+def session_parts(sessions):
+    """The batched step's intermediate values on the fixture's worlds: the
+    sessions' keypoints, frustum infos, the search's arguments and the pose
+    LM's observations, as ``MultiSessionProgram.run`` makes them."""
+    inputs, _, _ = sessions
+    images, tcw0, pt_pos, pt_desc, pt_valid, pt_normal, pt_min, pt_max = inputs
+    ex = ORBExtractor(SESSION_ORB, (SESSION_CAM.height, SESSION_CAM.width), "cpu")
+    kp = Keypoints.stack([k for k, _ in ex.extract_batch_with_pyramid(images)])
+    sf, nl = SESSION_ORB.scale_factor, SESSION_ORB.n_levels
+    info = kernels.frustum_check(tcw0, pt_pos, pt_valid, pt_normal, pt_min, pt_max,
+                                 SESSION_CAM, sf, nl)
+    radius = torch.where(info.view_cos > 0.998, 2.5, 4.0) * sf ** info.pred_level.float()
+    search = (info.uv, pt_desc, info.visible, radius,
+              torch.clamp(info.pred_level - 1, min=0), info.pred_level, kp)
+    res = match.windowed_match(*search, max_dist=MAX_HAMMING, ratio=0.8)
+    pos = torch.take_along_dim(pt_pos, res.assoc.clamp(0, LOCAL_CAP - 1)[..., None], dim=-2)
+    obs = kernels.build_pose_obs_from_frame(kp, torch.full(kp.valid.shape, -1.0), pos,
+                                            res.assoc >= 0, sf)
+    return dict(inputs=inputs, kp=kp, info=info, search=search, res=res, obs=obs)
+
+
+def test_batched_frustum_check_equals_each_session_alone(session_parts):
+    """frustum_check on the session axis: each session's values are its own
+    at B = 1 bit for bit (fixed-order sums), within float32 rounding of the
+    one-pose form (the library's sums), with the same visible points."""
+    p = session_parts
+    tcw0, pt_pos, pt_valid, pt_normal, pt_min, pt_max = (p["inputs"][i] for i in (1, 2, 4, 5, 6, 7))
+    sf, nl = SESSION_ORB.scale_factor, SESSION_ORB.n_levels
+    for s in range(B):
+        one = kernels.frustum_check(*(x[s:s + 1] for x in (tcw0, pt_pos, pt_valid, pt_normal,
+                                                           pt_min, pt_max)), SESSION_CAM, sf, nl)
+        for name, a, b in zip(one._fields, one, p["info"]):
+            assert torch.equal(a[0], b[s]), (s, name)
+        alone = kernels.frustum_check(*(x[s] for x in (tcw0, pt_pos, pt_valid, pt_normal,
+                                                       pt_min, pt_max)), SESSION_CAM, sf, nl)
+        np.testing.assert_allclose(alone.uv.numpy(), p["info"].uv[s].numpy(), atol=1e-3)
+        assert torch.equal(alone.visible, p["info"].visible[s]), s
+
+
+@pytest.mark.parametrize("order", ["fixture", "collide"])
+def test_batched_windowed_match_equals_each_session_alone(session_parts, order):
+    """windowed_match (with resolve_conflicts) on the session axis gives
+    each session's matches as the one-session call does, integer for
+    integer. "collide" stacks session 0 twice before the rest, so every
+    keypoint index of the first two sessions is claimed in both: a table
+    shared across sessions would hand each keypoint to one session only."""
+    p = session_parts
+    idx = list(range(B)) if order == "fixture" else [0, 0] + list(range(1, B))
+    search = [_sessions_at(x, idx) for x in p["search"]]
+    res = match.windowed_match(*search, max_dist=MAX_HAMMING, ratio=0.8)
+    if order == "collide":
+        both = (res.best_kp[0] >= 0) & (res.best_kp[0] == res.best_kp[1])
+        assert int(both.sum()) > SESSION_INLIERS_MIN
+    for s, src in enumerate(idx):
+        alone = match.windowed_match(*(_session(x, src) for x in p["search"]),
+                                     max_dist=MAX_HAMMING, ratio=0.8)
+        for name, a, b in zip(alone._fields, alone, res):
+            assert torch.equal(a, b[s]), (order, s, name)
+    assigned = match.resolve_conflicts(res.best_kp, res.best_dist, search[-1].n)
+    for s, src in enumerate(idx):
+        assert torch.equal(assigned[s], match.resolve_conflicts(
+            res.best_kp[s], res.best_dist[s], search[-1].n)), (order, s)
+
+
+def test_batched_pose_lm_equals_each_session_alone(session_parts):
+    """The pose LM on the session axis: each session's pose, inliers and
+    count are its own at B = 1 bit for bit, with its own damping and
+    convergence flag; against the one-pose form (the library's sums and
+    solve) within float32 rounding and with the same inlier count."""
+    p = session_parts
+    tcw0, obs = p["inputs"][1], p["obs"]
+    tcw, inlier, n_in = pose_opt.pose_optimization(tcw0, obs, SESSION_CAM)
+    assert tcw.shape == (B, 4, 4) and inlier.shape == obs.valid.shape and n_in.shape == (B,)
+    for s in range(B):
+        one = pose_opt.pose_optimization(tcw0[s:s + 1], _sessions_at(obs, [s]), SESSION_CAM)
+        assert torch.equal(one[0][0], tcw[s]) and torch.equal(one[1][0], inlier[s]), s
+        assert int(one[2][0]) == int(n_in[s]), s
+        alone = pose_opt.pose_optimization(tcw0[s], _session(obs, s), SESSION_CAM)
+        np.testing.assert_allclose(alone[0].numpy(), tcw[s].numpy(), atol=JAX_SESSION_ATOL)
+        assert int(alone[2]) == int(n_in[s]), s
+    with pytest.raises(ValueError, match="session axis"):
+        pose_opt.pose_optimization(tcw0, obs, SESSION_CAM, stop_early=True)
+
+
+def test_batched_step_reads_nothing_on_the_host(sessions):
+    """The program's step under a guard that refuses every host read of a
+    tensor (a CUDA graph's capture refuses them): it passes and gives the
+    fixture's outputs; on the CPU a call of the program is that step, with
+    no graph captured."""
+    inputs, _, (tcw, n_in) = sessions
+    step = make_multi_camera_step(SESSION_CAM, SESSION_ORB, LOCAL_CAP, "cpu")
+    with h.no_host_reads():
+        out = step.run(*inputs)
+    assert torch.equal(out[0], tcw) and torch.equal(out[1], n_in)
+    again = step(*inputs)
+    assert torch.equal(again[0], tcw) and torch.equal(again[1], n_in)
+    assert step.captures == 0 and step.replays == 0
+
+
+FIXED_ORDER_CASES = {
+    "dot": (lambda r: (r(5, 7, 3), r(5, 7, 3)), fixed_order.dot,
+            lambda a, b: torch.sum(a * b, dim=-1)),
+    "tree_sum": (lambda r: (r(5, 300, 6),), lambda x: fixed_order.tree_sum(x, -2),
+                 lambda x: torch.sum(x, dim=-2)),
+    "matmul": (lambda r: (r(5, 6, 3), r(5, 3, 6)), fixed_order.matmul, torch.matmul),
+    "apply": (lambda r: (se3.exp(0.3 * r(5, 6)), r(5, 40, 3)), fixed_order.apply,
+              lambda t, p: torch.stack([se3.apply(t[i], p[i]) for i in range(len(t))])),
+    "camera_center": (lambda r: (se3.exp(0.3 * r(5, 6)),), fixed_order.camera_center,
+                      se3.camera_center),
+    "exp": (lambda r: (0.3 * r(5, 6),), fixed_order.exp, se3.exp),
+    "solve": (lambda r: (_spd(r(5, 6, 9)), r(5, 6)), fixed_order.solve,
+              lambda a, b: torch.linalg.solve(a, b)),
+}
+
+
+def _spd(m):
+    return m @ m.transpose(-1, -2) + 0.1 * torch.eye(m.shape[-2])
+
+
+@pytest.mark.parametrize("name", sorted(FIXED_ORDER_CASES))
+def test_fixed_order_is_the_same_at_any_batch(name):
+    """Each fixed_order function: a batch element's result is its own at
+    B = 1 bit for bit, and within float32 rounding of the library's."""
+    make, fn, library = FIXED_ORDER_CASES[name]
+    gen = torch.Generator().manual_seed(7)
+    args = make(lambda *shape: torch.randn(*shape, generator=gen))
+    out = fn(*args)
+    np.testing.assert_allclose(out.numpy(), library(*args).numpy(), rtol=1e-4, atol=1e-4)
+    for i in range(len(args[0])):
+        assert torch.equal(fn(*(a[i:i + 1] for a in args))[0], out[i]), (name, i)

@@ -25,7 +25,7 @@ drives after the first run the JAX frame programs the first one compiled;
 they run one after another on a thread of their own, beside the port's
 (``torch_port_helpers.beside``). The savers with frames in flight, a reset
 with a batch in flight and the deliberate divergences from the JAX package
-are tests/test_torch_pipeline_chain.py.
+are tests/test_torch_pipeline_chain.py and test_torch_pipeline_batch.py.
 """
 import numpy as np
 import pytest

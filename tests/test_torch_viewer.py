@@ -12,7 +12,6 @@
 """
 import copy
 import os
-import time
 import types
 
 import cv2
@@ -40,6 +39,7 @@ CAM = PinholeCamera(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=24
 THICK_AGREE_MIN = 0.9
 JPEG_PSNR_MIN_DB = 35.0        # quality 95, 4:4:4 (cv2's own 4:2:0: about 36 dB)
 JPEG_DECODE_DIFF_MAX = 8       # grey levels between io/jpeg.py's reader and cv2's
+RENDER_WAIT_S = 10.0           # a frame's render by the live viewer, at most
 BAR = headless.STATUS_BAR_ROWS
 
 
@@ -188,10 +188,9 @@ def drive(tmp_path_factory):
         system.track_rgbd(gray, depth, i / seq.fps)
         live.push_frame(gray)
         frames.append(offline.update(gray))
-        time.sleep(0.02)  # a tick of the 60 Hz loop per frame
-    deadline = time.time() + 5.0
-    while live.n_rendered < 3 and time.time() < deadline:
-        time.sleep(0.05)
+        # the render thread draws the frame pushed last; each frame waits for
+        # its render (it draws at 60 Hz, far inside the bound)
+        assert live.wait_rendered(i + 1, RENDER_WAIT_S), (i, live.n_rendered)
     live.close()
     yield system, live, frames, out
     system.shutdown()
