@@ -120,7 +120,19 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             Prints ATE, ms per frame (median, p95), frames tracked again and
             the kernel's launches; fails on a frame lost after
             initialisation, an RGB-D ATE above 0.10 m, or stereo tracking
-            that starts at frame 20 or later
+            that starts at frame 20 or later. 14b: the K = 1 drive repeated
+            10 times in this process on the frames already rendered, each
+            with a new system shut down after it; prints each drive's ATE
+            and the first frame whose rebuilt pose is past 0.05 m from the
+            truth (anchored at the first tracked frame); fails on a drive
+            above 0.10 m or a frame lost. 14c: a capture after a dropped
+            system (tools/capture_after_drop.py): a system driven until it
+            captured its frame graph and a local BA's graphs is dropped
+            without shutdown(), and the last reference to its programs goes
+            inside the next system's first capture under
+            gc.set_threshold(1, 1, 1), so that the collector runs on the
+            capturing thread; fails unless that capture succeeds, the next
+            system tracks its 10 frames and the programs are freed after it
 15. localization  tests/test_localization_vo.py's scenario (6 frames mapped,
             24 in localization mode, shuttle in the cluttered world, seed 9)
             at 640x480 / 2000 / 8, held to what the JAX package does there
@@ -1853,7 +1865,7 @@ def drive_defaults_rgbd(name, cfg, frames, seq):
     ate = check_trajectory(name, tracker, seq, d)
     waits = tracker.stats.summary().get("fused_dev", {})
     print(f"  frames tracked again (a discarded chain) {d['retracked_frames']}, built again "
-          f"(a pose correction) {d['rebuilt_frames']}; waits for a fetch: "
+          f"(the map moved under the step) {d['rebuilt_frames']}; waits for a fetch: "
           f"{waits.get('n', 0)}, median {waits.get('median_ms', float('nan')):.3f} ms",
           flush=True)
     describe(name, tracker, d, ate, len(frames))   # fails above ATE_MAX_M
@@ -1866,6 +1878,81 @@ def drive_defaults_rgbd(name, cfg, frames, seq):
                 remapped_ids=d["remapped_ids"], reused_slot_ids=d["reused_slot_ids"],
                 replacements_lost=d["replacements_lost"],
                 sm_clock_mhz_median=float(np.median(d["mhz"]))), system
+
+
+DEFAULTS_REPEATS = 10    # phase 14b: K = 1 drives repeated in one process
+NEAR_M = 0.05            # 14b prints the first frame past this
+
+
+def frame_errors(est_twc: np.ndarray, gt_twc: np.ndarray, first: int) -> np.ndarray:
+    """Position error of each pose against the truth, the estimate moved
+    rigidly onto the truth at frame `first`."""
+    align = gt_twc[first] @ np.linalg.inv(est_twc[first])
+    est = np.einsum("ij,njk->nik", align, est_twc)
+    return np.linalg.norm(est[:, :3, 3] - gt_twc[:, :3, 3], axis=1)
+
+
+def check_repeated_defaults(cam, orb_cfg, frames, seq) -> dict:
+    """Phase 14b: the K = 1 defaults drive DEFAULTS_REPEATS times, each with a
+    new system, shut down after it; each within ATE_MAX_M and no frame lost."""
+    print(f"[defaults repeated] the K = 1 drive {DEFAULTS_REPEATS} times in one process, a "
+          f"new SLAMSystem each, {len(frames)} frames back to back", flush=True)
+    gt = np.stack([np.linalg.inv(seq.poses[i]) for i in range(len(frames))])
+    runs = []
+    for k in range(DEFAULTS_REPEATS):
+        name = f"defaults repeat {k}"
+        system = SLAMSystem(defaults_config(cam, orb_cfg), Sensor.RGBD)
+        tracker = system.tracker
+        tracker.stats.enabled = True
+        d = drive(name, system.track_rgbd, tracker, frames, seq, pipelined=True)
+        if not system.wait_mapping_idle(300):
+            fail(f"{name}: the mapping worker did not become idle within 300 s")
+        ate = check_trajectory(name, tracker, seq, d)     # fails on a lost frame
+        err = frame_errors(tracker.full_trajectory_twc(), gt, d["first_ok"])
+        past = np.flatnonzero(err[d["first_ok"]:] > NEAR_M)
+        first_past = int(past[0]) + d["first_ok"] if len(past) else None
+        keyframes = int(system.map.n_keyframes())
+        system.shutdown()
+        runs.append(dict(ate_m=ate, tracked=d["tracked"], keyframes=keyframes,
+                         retracked_frames=d["retracked_frames"],
+                         rebuilt_frames=d["rebuilt_frames"], launches=d["launches"],
+                         max_error_m=float(err[d["first_ok"]:].max()),
+                         first_frame_past_005=first_past))
+        print(f"  drive {k}: ATE {ate:.4f} m, {d['tracked']}/{len(frames)} tracked, "
+              f"{keyframes} keyframes, {d['retracked_frames']} frames tracked again, "
+              f"{d['rebuilt_frames']} built again; largest error "
+              f"{runs[-1]['max_error_m']:.4f} m, first frame past {NEAR_M} m: {first_past}",
+              flush=True)
+    ates = [r["ate_m"] for r in runs]
+    print(f"  ATE over {len(runs)} drives: min {min(ates):.4f}, median "
+          f"{float(np.median(ates)):.4f}, max {max(ates):.4f} m", flush=True)
+    far = [k for k, a in enumerate(ates) if a > ATE_MAX_M]
+    if far:
+        fail(f"defaults repeated: drives {far} above {ATE_MAX_M} m: "
+             f"{[round(ates[k], 4) for k in far]}")
+    return dict(runs=runs, launches=sum(r["launches"] for r in runs), ate_max_m=max(ates),
+                ate_median_m=float(np.median(ates)))
+
+
+def check_capture_after_drop(cam, orb_cfg, frames, seq) -> dict:
+    """Phase 14c: tools/capture_after_drop.py's scenario; fails unless the
+    next system's capture succeeds with the dropped programs collected
+    inside it."""
+    from orbslam2_tpu_torch.tools import capture_after_drop
+
+    print("[capture after drop] a system's frame and local-BA graphs dropped inside the next "
+          "system's first capture, gc.set_threshold(1, 1, 1)", flush=True)
+    out = capture_after_drop.drop_inside_capture(
+        lambda: SLAMSystem(defaults_config(cam, orb_cfg), Sensor.RGBD), frames, seq.fps)
+    print(f"  {out['graphs_dropped']} graphs of {out['programs_dropped']} programs dropped "
+          f"after {out['warm_frames']} frames; dropped inside the capture "
+          f"{out['dropped_in_capture']}; the next system's capture error "
+          f"{out['capture_error']}; its graphs captured {out['next_captures']}, frames lost "
+          f"{out['next_frames_lost']}; programs freed after it {out['programs_freed']}",
+          flush=True)
+    if not out["ok"]:
+        fail(f"capture after drop: {out}")
+    return out
 
 
 def drive_defaults_stereo(seq, frames):
@@ -4051,6 +4138,8 @@ def main() -> None:
     defaults_k4, _ = run_phase(
         drive_defaults_rgbd, "defaults K=4", defaults_config(cam, orb_cfg, fetch_batch=4),
         frames, seq)
+    defaults_repeated = run_phase(check_repeated_defaults, cam, orb_cfg, frames, seq)
+    capture_after_drop = run_phase(check_capture_after_drop, cam, orb_cfg, frames, seq)
     defaults_stereo = run_phase(drive_defaults_stereo, stereo_seq, stereo_frames)
     # ---- phases 15 and 16: localization mode and the system API; backlog --
     localization = run_phase(check_localization, cam, orb_cfg)
@@ -4104,6 +4193,7 @@ def main() -> None:
                              "launches_per_frame": stereo_kitti["launches_per_frame_build"]},
         "launches_by_path": {"defaults_rgbd": defaults_k1["launches"],
                              "defaults_rgbd_fetch_batch_4": defaults_k4["launches"],
+                             "defaults_rgbd_repeated": defaults_repeated["launches"],
                              "defaults_stereo": defaults_stereo["launches"],
                              "localization": localization["launches"],
                              "backlog": backlog["launches"],
@@ -4135,7 +4225,8 @@ def main() -> None:
         "local_ba_card_vs_cpu": ba_check,
         "mapping_searches_card_vs_cpu": search_check,
         "defaults": {"rgbd": defaults_k1, "rgbd_fetch_batch_4": defaults_k4,
-                     "stereo": defaults_stereo},
+                     "rgbd_repeated": defaults_repeated,
+                     "capture_after_drop": capture_after_drop, "stereo": defaults_stereo},
         "localization": localization, "map_reload": reload, "global_ba": gba,
         "backlog": backlog, "mono": mono, "two_view_card_vs_cpu": two_view,
         "mono_loop": mono_loop, "mono_relocalization": mono_reloc,

@@ -36,8 +36,11 @@ turns, and the lock is never held while waiting for the map lock. The
 distributed BA (``parallel/dist_ba.py``) stays eager: its all-reduces
 cannot be captured.
 
-Each program counts ``captures`` (keys captured), ``replays`` (solves
-replayed) and ``graph_launches``, and keeps for each capture its
+``release()`` frees a program's graphs after its last solve's replay, under
+``utils/graph_capture.py``'s rules (``SLAMSystem.shutdown`` releases every
+program of the system); a later solve captures again. Each program counts
+``captures`` (keys captured), ``replays`` (solves replayed) and
+``graph_launches``, and keeps for each capture its
 milliseconds (``capture_ms``), the milliseconds it waited for a caller's
 call (``held_ms``) and the thread that captured (``capture_threads``), and
 for each replay the milliseconds its launches waited (``replay_held_ms``).
@@ -89,6 +92,7 @@ class _Program:
         self._pool = None
         self._done = None
         self._lock = threading.Lock()
+        self.captures = 0
         self.replays = 0
         self.graph_launches = 0
         self.capture_ms: list = []
@@ -96,9 +100,15 @@ class _Program:
         self.replay_held_ms: list = []
         self.capture_threads: list = []
 
-    @property
-    def captures(self) -> int:
-        return len(self._captured)
+    def release(self) -> None:
+        """Free every key's graphs after the last solve's replay
+        (``graph_capture.release``); the next solve of a key captures again,
+        into a new memory pool."""
+        with self._lock:
+            captured, self._captured = self._captured, {}
+            graph_capture.release(
+                [g for c in captured.values() for g in c.graphs.values()], self._done)
+            self._pool = None
 
     def _run(self, key, flat, build) -> tuple:
         with self._lock, torch.cuda.device(self.device):
@@ -143,6 +153,7 @@ class _Program:
         self.capture_threads.append(threading.current_thread().name)
         captured = _Captured(inputs, graphs, schedule, outputs, parts)
         self._captured[key] = captured
+        self.captures += 1
         return captured
 
 

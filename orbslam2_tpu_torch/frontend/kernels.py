@@ -523,11 +523,14 @@ class StepProgram:
     outputs, which a later replay leaves alone. A new key captures a new
     graph, as ``jax.jit`` traces again. A graph's buffers are not
     reentrant: one caller owns a program. A capture or a replay that fails
-    raises; nothing falls back to the eager step.
+    raises; nothing falls back to the eager step. ``release()`` frees the
+    graphs once their last replay has run (``graph_capture.release``); the
+    next call captures again.
 
-    ``replays`` counts the replays; each adds the describe launches it
-    holds to ``cuda_orb.fused_orient_describe.launches``, which no wrapper
-    call counts inside a graph.
+    ``captures`` counts the graphs captured and ``replays`` the replays;
+    each replay adds the describe launches it holds to
+    ``cuda_orb.fused_orient_describe.launches``, which no wrapper call
+    counts inside a graph.
 
     A subclass gives ``_step(inputs, extra)``, the step's capture form on
     the flat list of input tensors, and ``_tensors(out)`` and
@@ -536,11 +539,15 @@ class StepProgram:
     def __init__(self):
         self._graphs: dict = {}
         self._stream = None
+        self._done = None       # recorded behind the last replay
+        self.captures = 0
         self.replays = 0
 
-    @property
-    def captures(self) -> int:
-        return len(self._graphs)
+    def release(self) -> None:
+        """Free the program's graphs after their last replay."""
+        graphs, self._graphs = self._graphs, {}
+        graph_capture.release([c.graph for c in graphs.values()], self._done)
+        self._done = None
 
     def _program(self, flat: list, extra=()):
         """The step through its graph for these inputs (on a card)."""
@@ -578,6 +585,7 @@ class StepProgram:
         held = cuda_orb.fused_orient_describe.launches - counted
         cuda_orb.fused_orient_describe.launches = counted   # a capture runs nothing
         self._graphs[key] = _Captured(graph, inputs, captured["outputs"], held, list(flat))
+        self.captures += 1
         return out
 
     def _copy_in(self, captured: _Captured, flat: list) -> None:
@@ -590,6 +598,9 @@ class StepProgram:
         self._copy_in(captured, flat)
         captured.sources = list(flat)
         captured.graph.replay()
+        if self._done is None:
+            self._done = torch.cuda.Event()
+        self._done.record()
         self.replays += 1
         cuda_orb.fused_orient_describe.launches += captured.describe_launches
         return self._clone(captured.outputs)
@@ -703,14 +714,16 @@ def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
     a ``(velocity, tcw_prev)`` pair, `_resolve_pred`) and the rest of
     `_fused_track_core`'s arguments after the frame's own. `programs`: the
     caller's programs by sensor, filled here (a tracker keeps one; a program
-    made for another extractor or camera is replaced); without it a call
-    makes a program of its own, which on a card captures a graph it never
-    replays."""
+    made for another extractor or camera is released and replaced); without
+    it a call makes a program of its own, which on a card captures a graph
+    it never replays."""
     kind, imgs = sensor_images
     programs = {} if programs is None else programs
     prog = programs.get(kind)
     if prog is None or prog.extractor is not extractor or (
             prog.cam, prog.scale_factor, prog.n_levels) != (cam, scale_factor, n_levels):
+        if prog is not None:
+            prog.release()
         prog = programs[kind] = _PROGRAMS[kind](extractor, cam, scale_factor, n_levels)
     return prog(*imgs, *args)
 

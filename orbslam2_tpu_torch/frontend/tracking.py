@@ -230,8 +230,9 @@ class Tracker:
         self.reused_slot_ids = 0
         self.replacements_lost = 0
         # frames built again because a pose correction (loop closure, global
-        # BA) rebased the map while their fused step was in flight: each is
-        # one more extraction (read by drives)
+        # BA) rebased the map, or a local BA moved their reference keyframe,
+        # while their fused step was in flight: each is one more extraction
+        # (read by drives)
         self.rebuilt_frames = 0
         # pipelined frames tracked again because the frame or batch they
         # were chained off was discarded: each is one more extraction
@@ -513,6 +514,7 @@ class Tracker:
             local_ids = self._dev(self._local_ids)
             local_sel = self._dev(self._local_sel)
             local_pts = self._local_pts
+            ref = self._ref_snapshot()
         out = kernels.fused_frame_step(
             (kind, imgs_d), self.extractor, self.cam,
             self.cfg.orb.scale_factor, self.cfg.orb.n_levels,
@@ -522,7 +524,27 @@ class Tracker:
             mir.pt_min_dist, mir.pt_max_dist, programs=self.frame_programs)
         return dict(out=out, kind=kind, imgs_d=imgs_d, timestamp=timestamp,
                     frame_id=frame_id, corr_gen=corr_gen, stamp_snap=stamp_snap,
-                    kf_snap=kf_snap, local_pts=local_pts)
+                    kf_snap=kf_snap, local_pts=local_pts, ref=ref)
+
+    def _ref_snapshot(self):
+        """The reference keyframe as a frame is dispatched against the map:
+        (slot, order, pose), or None without a live one."""
+        ref = self.ref_kf
+        if ref < 0 or not self.map.kf_valid[ref]:
+            return None
+        return ref, int(self.map.kf_order[ref]), self.map.kf_pose[ref].copy()
+
+    def _ref_moved(self, rec: dict) -> bool:
+        """The map moved a dispatched frame's reference keyframe since the
+        dispatch (a local BA written back while the step ran, or the
+        keyframe culled): the frame was solved against points that have
+        moved since."""
+        snap = rec.get("ref")
+        if snap is None:
+            return False
+        kf, order, then = snap
+        now = self.map.resolve_kf_pose(kf, order)
+        return now is None or not np.array_equal(now, then)
 
     @staticmethod
     def _fetch_parts(out: kernels.FusedFrameOut):
@@ -606,10 +628,17 @@ class Tracker:
 
     def _apply_one(self, rec: dict, fetched) -> Optional[np.ndarray]:
         """Apply one fetched frame. A pose correction that rebased the map
-        while the step was in flight (map.correction_gen moved) voids the
-        solved pose: the frame is dispatched again against the corrected
-        state, chained off the applied state; after two corrections in a row
-        it takes the classic path.
+        while the step was in flight (map.correction_gen moved), or a local
+        BA written back meanwhile that moved the frame's reference keyframe,
+        voids the solved pose: the frame is dispatched again against the
+        moved map, chained off the applied state, and the frames chained off
+        it are tracked again (``_carry_wrong``); after two in a row it takes
+        the classic path. The reference tracker holds the map for the whole
+        of a frame (Tracking::Track under mMutexMapUpdate), so no frame of
+        its is solved against points that then move under it, and a loop
+        correction's rule is the port's for a local BA too: a frame solved
+        before the BA and chained across it went 1.2-1.6 m off where few
+        points were in view (ROADMAP.md, deliberate divergences).
 
         A deliberate divergence from the JAX package: a pipelined frame that
         failed where the JAX package fails it (the motion model and then the
@@ -621,7 +650,7 @@ class Tracker:
         divergences)."""
         for _attempt in range(2):
             with self.map_lock:
-                if self.map.correction_gen == rec["corr_gen"]:
+                if self.map.correction_gen == rec["corr_gen"] and not self._ref_moved(rec):
                     ret = self._fused_apply(rec, fetched)
                     if ret is not _MISSED_KEYFRAME:
                         return ret

@@ -158,16 +158,32 @@ class SLAMSystem:
     @graph_capture.entry()
     def shutdown(self) -> None:
         """System::Shutdown: apply the frames in flight, map what is queued,
-        join the mapping worker, then wait for a global BA in flight.
-        Idempotent; raises the worker's first exception once, and a failed
-        GBA's."""
-        self.tracker.flush_frames()
-        worker, self.mapping_worker = self.mapping_worker, None
-        if worker is not None:
-            self.tracker.mapping_worker = None
-            worker.stop()
+        join the mapping worker, then wait for a global BA in flight, and
+        release the CUDA graphs of every program the system owns (a later
+        call captures again). Idempotent; raises the worker's first
+        exception once, and a failed GBA's."""
+        try:
+            self.tracker.flush_frames()
+            worker, self.mapping_worker = self.mapping_worker, None
+            if worker is not None:
+                self.tracker.mapping_worker = None
+                worker.stop()
+            if self.loop_closer is not None:
+                self.loop_closer.wait_gba()
+        finally:
+            for program in self.programs():
+                program.release()
+
+    def programs(self) -> list:
+        """The programs whose CUDA graphs the system owns: the tracker's
+        frame programs, the local BA's, the loop closer's essential graph and
+        global BA, and the system's own global BA without a loop closer."""
+        out = [*self.tracker.frame_programs.values(), self.local_mapper.ba_program]
         if self.loop_closer is not None:
-            self.loop_closer.wait_gba()
+            out += [self.loop_closer.eg_program, self.loop_closer.gba_program]
+        else:
+            out.append(self._gba_program)
+        return out
 
     @graph_capture.entry()
     def wait_mapping_idle(self, timeout: float = 60.0) -> bool:

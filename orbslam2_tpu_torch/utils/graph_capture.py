@@ -28,10 +28,23 @@ So the port keeps two rules, both here:
 
 A turn holds no lock of the port and waits for nothing but the interpreter,
 so a call may wait for one whatever it holds.
+
+No graph is destroyed inside a capture. A ``torch.cuda.CUDAGraph`` frees its
+executable graph when it is reset or collected (``cudaGraphExecDestroy``),
+which a ``thread_local`` capture refuses on its own thread: the capture is
+invalidated and fails ("operation failed due to a previous error during
+capture"). Python's cyclic collector runs on whichever thread allocates when
+it is due, so it could free a dropped system's programs on a thread that is
+capturing. So the collector is off while any capture of the process is open
+(its state comes back when the last one closes, on error too), and a
+program's graphs are freed by ``release``: after their last replay has run,
+in a turn, and while no capture is open (``SLAMSystem.shutdown`` releases
+every program of the system).
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, Tuple
@@ -40,6 +53,8 @@ _state = threading.Condition()
 _calls = 0          # callers inside a call of the port
 _waiting = 0        # turns on the port's threads waiting for a call
 _captures = 0       # turns running
+_open = 0           # captures open (the collector is off while any is)
+_collector_was_on = False
 _thread = threading.local()
 
 
@@ -92,6 +107,28 @@ def turn():
             _state.notify_all()
 
 
+@contextlib.contextmanager
+def _collector_off():
+    """No automatic collection while the block runs on any thread; the
+    collector's state before the first open block comes back when the last
+    one closes, whatever the block raised."""
+    global _open, _collector_was_on
+    with _state:
+        if _open == 0:
+            _collector_was_on = gc.isenabled()
+            gc.disable()
+        _open += 1
+    try:
+        yield
+    finally:
+        with _state:
+            _open -= 1
+            if _open == 0:
+                if _collector_was_on:
+                    gc.enable()
+                _state.notify_all()
+
+
 def capture(parts: Dict[str, Callable[[], object]], stream, pool=None
             ) -> Tuple[dict, float, float]:
     """Each of `parts` captured as one ``torch.cuda.CUDAGraph`` on `stream`
@@ -105,12 +142,31 @@ def capture(parts: Dict[str, Callable[[], object]], stream, pool=None
     with turn() as held_ms, torch.cuda.stream(stream):
         t0 = time.perf_counter()
         graphs = {}
-        for name, part in parts.items():
-            graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
-            try:
-                part()
-            finally:
-                graph.capture_end()
-            graphs[name] = graph
+        with _collector_off():
+            for name, part in parts.items():
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    part()
+                finally:
+                    graph.capture_end()
+                graphs[name] = graph
         return graphs, held_ms, (time.perf_counter() - t0) * 1e3
+
+
+def release(graphs, after=None) -> None:
+    """Free `graphs` (``torch.cuda.CUDAGraph``) under the rules above: once
+    the event `after` (recorded behind their last replay; None when there
+    was none) has completed, in a turn, and while no capture of the process
+    is open. A freed graph cannot be replayed: its owner captures again."""
+    graphs = list(graphs)
+    if not graphs:
+        return
+    with turn():
+        if after is not None:
+            after.synchronize()
+        with _state:
+            while _open:
+                _state.wait()
+            for graph in graphs:
+                graph.reset()
