@@ -141,7 +141,11 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             change_calibration to the same camera before frame 12 and that
             frame tracked; at the test's own 320x240 / 800 / 4, held to a
             frozen map, 22 of 24 frames tracked and an RPE under 0.05 m, then
-            change_calibration and the next frame tracked; phase 9's map
+            change_calibration and the next frame tracked; each drive
+            prints its ms a frame in localization mode with the graph
+            replays and captures a frame (every classic-path frame replays
+            the frame build and the motion-model and local-map programs of
+            phase 21b) and every capture with the frame it landed on; phase 9's map
             through save_map and load_map into a new system with the
             vocabulary, in localization mode, relocalizing a mapped frame
             through the keyframe database within 0.1 m; global_bundle_adjust
@@ -282,6 +286,25 @@ Phases (any failure exits non-zero; there is no CPU fallback):
             tracker captured and replayed; each replay adds its one describe
             launch to the kernel's count, so every launch gate counts what it
             counted before
+21b. classic programs  the classic tracking path's programs (initialization,
+            relocalization, localization mode, the motion-model fallback),
+            each as one CUDA graph, the counterparts of the JAX package's
+            jitted _rgbd_program, _stereo_program, _mono_program,
+            motion_model_step and local_map_step: each sensor's frame build
+            (frame.BuildProgram) on phase 14's, 12's and 17a's last images;
+            then a copy of phase 14's tracker, its local selection dropped,
+            tracks phase 5's last frame again on the classic path through
+            its programs (all three captured there, their capture ms
+            printed), and the motion-model and local-map programs
+            (kernels.MotionModelProgram, LocalMapProgram) are held on the
+            inputs of that frame's calls. Each through a new program: one
+            graph and its describe launches after the first call (1 for a
+            build, 0 for a step), a replay equal bit for bit to the eager
+            step (host reads, early stops) and to the warm-up in every
+            output, 10 replays traced (10 graph launches, 10 or 0
+            orient_describe_kernel, the kernels inside a replay), the first
+            call's and the capture's ms, a replay's and the eager step's ms,
+            the peak memory above the staged inputs and the graph's pool
 22. solve programs  local BA, the essential graph and global BA as
             programs (backend/solve_program.py: the counterpart of the JAX
             package's jitted solves, whose LM loops are lax.scan over one
@@ -314,8 +337,8 @@ Then one JSON line {"kernels": [...]} (phase 3's numbers and phase 5's
 launches at its top level, each replay of a frame program counted, phase
 13's 16-level launch and phase 12's launches under "stereo_16_levels",
 phase 19b's 16-level launch under "multi_session_16_levels", every drive's
-launches under "launches_by_path", phase 21 under "frame_programs", phase 22
-under "solve_programs"), the
+launches under "launches_by_path", phase 21 under "frame_programs", phase
+21b under "classic_programs", phase 22 under "solve_programs"), the
 nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -340,6 +363,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from orbslam2_tpu_torch.backend import ba
 from orbslam2_tpu_torch.backend import pose_graph, solve_program
+from orbslam2_tpu_torch.frontend import frame as frame_mod
 from orbslam2_tpu_torch.frontend import kernels, local_mapping, loop_closing
 from orbslam2_tpu_torch.frontend import tracking as tracking_mod
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig, Tracker, TrackingState
@@ -764,10 +788,15 @@ def drive(name, track, tracker, frames, seq, pace=None, pipelined=False) -> dict
     graphs = sum(p.captures for p in programs)
     replays = sum(p.replays for p in programs)
     kinds = ", ".join(p.kind for p in programs) or "no program"
+    classic = tracker.classic_programs
     print(f"  frame programs: {graphs} CUDA graphs captured ({kinds}), {replays} replays; "
-          f"the launch count holds one describe launch per replay", flush=True)
+          f"classic-path programs: "
+          f"{', '.join(f'{k} {p.captures} / {p.replays}' for k, p in classic.items())} "
+          f"captured / replayed; the launch count holds one describe launch per frame "
+          f"program or build replay", flush=True)
     return dict(launches=launches, first_ok=first_ok, tracked=tracked,
                 graphs_captured=graphs, graph_replays=replays,
+                classic_programs={k: (p.captures, p.replays) for k, p in classic.items()},
                 fused_frames=fused_frames, rebuilt_frames=tracker.rebuilt_frames,
                 retracked_frames=tracker.retracked_frames,
                 revalidated_frames=tracker.revalidated_frames,
@@ -1993,7 +2022,22 @@ def drive_defaults_stereo(seq, frames):
                 keyframes=int(system.map.n_keyframes()))
 
 
-def localization_drive(name, cfg, calib_at, lost_expected=None) -> dict:
+def program_counts(tracker: Tracker) -> dict:
+    """-> {program: (graphs captured, replays)} over the tracker's fused
+    frame programs ("fused <sensor>") and classic-path programs."""
+    return {name: (p.captures, p.replays) for name, p in (
+        *((f"fused {k}", p) for k, p in tracker.frame_programs.items()),
+        *tracker.classic_programs.items())}
+
+
+def program_of(tracker: Tracker, name: str):
+    """The tracker's program of that name in ``program_counts``."""
+    if name.startswith("fused "):
+        return tracker.frame_programs[name[len("fused "):]]
+    return tracker.classic_programs[name]
+
+
+def localization_drive(name, cfg, calib_at, smi_line, lost_expected=None) -> dict:
     """tests/test_localization_vo.py's scenario through SLAMSystem with
     `cfg` (no vocabulary, as the test): map the first frames of the shuttle
     (cluttered world, seed 9), then track on in localization mode into
@@ -2002,7 +2046,8 @@ def localization_drive(name, cfg, calib_at, lost_expected=None) -> dict:
     map must stay frozen. Without `lost_expected` the tracked count and the
     RPE are held to the test's limits; with it, the frames lost must be
     exactly those and the RPE over the tracked frames within the test's
-    limit."""
+    limit. Prints the ms a frame in localization mode, the graph replays and
+    captures a frame, and every capture of the drive with its frame."""
     cam = cfg.cam
     n_all = LOC_MAPPED + LOC_FRAMES
     seq = SyntheticSequence(cam, n_frames=60, trajectory="shuttle", seed=9, world="cluttered")
@@ -2014,8 +2059,19 @@ def localization_drive(name, cfg, calib_at, lost_expected=None) -> dict:
     system = SLAMSystem(cfg, Sensor.RGBD)
     tracker = system.tracker
     cuda_orb.fused_orient_describe.launches = 0
-    for i in range(LOC_MAPPED):
+    landed = []    # (frame, program, capture ms, the frame's ms)
+
+    def track(i):
+        before = program_counts(tracker)
+        t_frame = time.perf_counter()
         system.track_rgbd(*frames[i], i / seq.fps)
+        frame_ms = (time.perf_counter() - t_frame) * 1e3
+        for name, (n_cap, _) in program_counts(tracker).items():
+            for k in range(before.get(name, (0, 0))[0], n_cap):
+                landed.append((i, name, program_of(tracker, name).capture_ms[k], frame_ms))
+
+    for i in range(LOC_MAPPED):
+        track(i)
     system.activate_localization_mode()
     m = system.map
     frozen = (m.n_points(), m.n_keyframes(), m.pt_valid.copy(), m.kf_valid.copy(),
@@ -2027,13 +2083,17 @@ def localization_drive(name, cfg, calib_at, lost_expected=None) -> dict:
 
     t0 = time.perf_counter()
     vo_frames = 0
+    at_start = program_counts(tracker)
     for i in range(LOC_MAPPED, n_all):
         if i == calib_at:
             calibrate()
-        system.track_rgbd(*frames[i], i / seq.fps)
+        track(i)
         vo_frames += tracker.mb_vo
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / LOC_FRAMES
+    at_end = program_counts(tracker)
+    replays = sum(at_end[k][1] - at_start.get(k, (0, 0))[1] for k in at_end) / LOC_FRAMES
+    captures = sum(at_end[k][0] - at_start.get(k, (0, 0))[0] for k in at_end) / LOC_FRAMES
     launches = cuda_orb.fused_orient_describe.launches
     est = tracker.full_trajectory_twc()[LOC_MAPPED:n_all]
     lost = tracker.trajectory_lost_mask()[LOC_MAPPED:n_all]
@@ -2053,8 +2113,12 @@ def localization_drive(name, cfg, calib_at, lost_expected=None) -> dict:
     print(f"  map frozen {unchanged} ({frozen[0]} points, {frozen[1]} keyframes); frames "
           f"tracked {tracked}/{LOC_FRAMES} (lost: {lost_ids}), {vo_frames} on temporal points "
           f"only; RPE {t_rpe:.4f} m / {r_rpe:.5f} rad per frame, {t_rpe_tracked:.4f} m over "
-          f"the tracked frames; {ms:.1f} ms a frame; kernel launches {launches} for {n_all} "
-          f"frames; frame {calib_at} after change_calibration tracked: {calib_ok}", flush=True)
+          f"the tracked frames; {ms:.1f} ms a frame in localization mode, {replays:.2f} graph "
+          f"replays and {captures:.2f} captures a frame | {smi_line}; kernel launches "
+          f"{launches} for {n_all} frames; frame {calib_at} after change_calibration tracked: "
+          f"{calib_ok}", flush=True)
+    print("  captures: " + "; ".join(f"frame {i} {name} {cap:.1f} ms (the frame {f_ms:.1f} ms)"
+                                     for i, name, cap, f_ms in landed), flush=True)
     if not unchanged:
         fail(f"{name}: the map changed in localization mode")
     if launches != n_all + tracker.rebuilt_frames + tracker.retracked_frames:
@@ -2074,11 +2138,15 @@ def localization_drive(name, cfg, calib_at, lost_expected=None) -> dict:
                  f"{LOC_RPE_MAX_M} m)")
     return dict(tracked=tracked, lost=lost_ids, vo_frames=int(vo_frames), rpe_m=t_rpe,
                 rpe_rad=r_rpe, rpe_tracked_m=t_rpe_tracked, map_frozen=unchanged,
-                ms_per_frame=ms, launches=launches, calibration_frame=calib_at,
+                ms_per_frame=ms, graph_replays_per_frame=replays,
+                graph_captures_per_frame=captures,
+                captures=[dict(frame=i, program=name, capture_ms=cap, frame_ms=f_ms)
+                          for i, name, cap, f_ms in landed],
+                launches=launches, calibration_frame=calib_at,
                 tracked_after_change_calibration=calib_ok)
 
 
-def check_localization(cam, orb_cfg) -> dict:
+def check_localization(cam, orb_cfg, smi_line) -> dict:
     """Phase 15a. At full width a relocalization in the aliased cluttered
     world lands metres off late in the drive and frames 27-29 are lost, as
     the JAX package loses them on the CPU (tests/reference_full_width.py):
@@ -2089,7 +2157,7 @@ def check_localization(cam, orb_cfg) -> dict:
     full = localization_drive(
         "localization", defaults_config(cam, orb_cfg, max_frames_between_kf=10,
                                         min_init_features=300),
-        calib_at=LOC_CALIB_FULL, lost_expected=LOC_LOST_FULL)
+        calib_at=LOC_CALIB_FULL, smi_line=smi_line, lost_expected=LOC_LOST_FULL)
     small = PinholeCamera(fx=260.0, fy=260.0, cx=160.0, cy=120.0, width=320, height=240,
                           bf=26.0)
     test = localization_drive(
@@ -2097,7 +2165,7 @@ def check_localization(cam, orb_cfg) -> dict:
         SLAMConfig(cam=small, orb=orb.ORBConfig(n_features=800, n_levels=4), th_depth=4.0,
                    max_keyframes=64, max_points=8192, local_point_cap=2048,
                    max_frames_between_kf=10, min_init_features=300),
-        calib_at=LOC_MAPPED + LOC_FRAMES)
+        calib_at=LOC_MAPPED + LOC_FRAMES, smi_line=smi_line)
     return {"full_width": full, "test_geometry": test,
             "launches": full["launches"] + test["launches"]}
 
@@ -3762,6 +3830,162 @@ def check_frame_programs(rgbd_system, seq, stereo_system, stereo_seq, stereo_fra
     return out
 
 
+# ---- phase 21b: the classic path's programs ---------------------------------
+def classic_outputs(out) -> dict:
+    """The tensors of a build's (kp, ur, depth) or a TrackStepResult by name."""
+    if isinstance(out, kernels.TrackStepResult):
+        return out._asdict()
+    kp, ur, depth = out
+    return {**{f"kp.{f}": x for f, x in zip(kernels._KP_FIELDS, kernels._kp_tensors(kp))},
+            "ur": ur, "depth": depth}
+
+
+def differing_outputs(x, y) -> dict:
+    """The outputs of two runs of a classic program that differ in a bit,
+    with their largest difference."""
+    out = {}
+    for field, a in classic_outputs(x).items():
+        b = classic_outputs(y)[field]
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(
+                a.view(torch.int32) if a.dtype == torch.float32 else a,
+                b.view(torch.int32) if b.dtype == torch.float32 else b):
+            out[field] = float((a.double() - b.double()).abs().max()) \
+                if a.shape == b.shape else float("nan")
+    return out
+
+
+def check_classic_program(name, prog, args, describe_held, smi_line) -> dict:
+    """Phase 21b for one program: a new program (no graph) made for what
+    `prog` was made for, captured on `args`, one replay against the eager
+    step on the same inputs bit for bit (and against the warm-up), ten
+    replays traced, the times and the peak memory."""
+    from orbslam2_tpu_torch.tools import frame_step_ab
+
+    fresh = copy.deepcopy(prog)
+    cuda_orb.fused_orient_describe.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    warm = fresh(*args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if fresh.captures != 1 or cuda_orb.fused_orient_describe.launches != describe_held:
+        fail(f"classic programs: {name}: {fresh.captures} graphs and "
+             f"{cuda_orb.fused_orient_describe.launches} describe launches after the first "
+             f"call (expected 1 and {describe_held})")
+    held = fresh._graphs[next(iter(fresh._graphs))].describe_launches
+    replay = fresh(*args)
+    torch.cuda.synchronize()
+    if cuda_orb.fused_orient_describe.launches != 2 * describe_held or fresh.replays != 1 \
+            or held != describe_held:
+        fail(f"classic programs: {name}: {cuda_orb.fused_orient_describe.launches} describe "
+             f"launches after one replay ({held} held by the graph, expected {describe_held})")
+    eager = fresh.run(*args)             # the eager form: host reads, early stops
+    eager_again = fresh.run(*args)
+    torch.cuda.synchronize()
+    diffs = {f"{label}:{f}": d for label, other in (("eager", eager), ("warm-up", warm))
+             for f, d in differing_outputs(replay, other).items()}
+    eager_spread = differing_outputs(eager, eager_again)
+    if diffs:
+        fail(f"classic programs: {name}: the replay differs from the step ({diffs}); the "
+             f"eager step against itself: {eager_spread or 'identical'}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as trace:
+        for _ in range(FRAME_PROGRAM_REPLAYS):
+            fresh(*args)
+        torch.cuda.synchronize()
+    c = frame_step_ab.window_counts(trace)
+    if c["graphs"] != FRAME_PROGRAM_REPLAYS or \
+            c["describe"] != FRAME_PROGRAM_REPLAYS * describe_held:
+        fail(f"classic programs: {name}: {FRAME_PROGRAM_REPLAYS} replays traced {c['graphs']} "
+             f"graph launches and {c['describe']} describe kernels")
+    replay_ms = float(np.median([_timed(lambda: fresh(*args), torch.cuda.synchronize)[1]
+                                 for _ in range(5)]))
+    eager_ms = float(np.median([_timed(lambda: fresh.run(*args), torch.cuda.synchronize)[1]
+                                for _ in range(5)]))
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    pool = graph_pool_bytes(fresh)
+    fresh.release()
+    print(f"  {name}: first call {first_ms:.1f} ms (warm-up and capture; the capture "
+          f"{fresh.capture_ms[0]:.1f} ms), the replay equal to the eager step bit for bit "
+          f"({', '.join(classic_outputs(replay))}; the warm-up too); {held} describe launch"
+          f"{'es' if held != 1 else ''} held by the graph; {FRAME_PROGRAM_REPLAYS} replays "
+          f"traced: {c['graphs']} graph launches, {c['describe']} orient_describe_kernel, "
+          f"{c['graph_kernels'] / FRAME_PROGRAM_REPLAYS:.0f} kernels inside a replay and "
+          f"{c['launches'] / FRAME_PROGRAM_REPLAYS:.0f} outside it; a replay {replay_ms:.2f} "
+          f"ms, the eager step {eager_ms:.2f} ms (host clock around a synchronised call); "
+          f"peak memory {peak / 2**20:.0f} MiB above the staged inputs (the graph's pool, "
+          f"its buffers and the eager steps); the graph's pool "
+          f"{'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'} | {smi_line}",
+          flush=True)
+    return dict(first_call_ms=first_ms, capture_ms=fresh.capture_ms[0], replay_ms=replay_ms,
+                eager_ms=eager_ms, peak_memory_above_staged_bytes=int(peak),
+                graph_pool_bytes=pool,
+                kernels_per_replay=c["graph_kernels"] / FRAME_PROGRAM_REPLAYS,
+                launches_outside_per_replay=c["launches"] / FRAME_PROGRAM_REPLAYS,
+                graph_launches=c["graphs"], describe_kernels=c["describe"],
+                describe_per_replay=held, eager_run_to_run=eager_spread)
+
+
+def graph_pool_bytes(prog):
+    """The bytes of the caching allocator's segments in the memory pools of
+    the program's graphs (what the program keeps for its owner's life), or
+    None where this torch's memory snapshot does not say."""
+    try:
+        pools = {tuple(c.graph.pool()) for c in prog._graphs.values()}
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) in pools)
+    except (AttributeError, KeyError, TypeError, RuntimeError):
+        return None
+
+
+def check_classic_programs(rgbd_system, frames, seq, stereo_system, stereo_frames,
+                           mono_system, mono_seq, smi_line) -> dict:
+    """Phase 21b: the classic tracking path's five programs. The builds of
+    each sensor (frame.BuildProgram) on phase 14's, 12's and 17a's last
+    images; the motion-model and local-map steps (kernels.MotionModelProgram
+    and LocalMapProgram) on the inputs a classic-path frame staged: a copy of
+    phase 14's tracker, its local selection dropped so that the next frame
+    takes the classic path, tracks phase 5's last frame again through its
+    programs (each captured there), and each program is held on the inputs
+    of that call."""
+    print("[classic programs] the classic path's frame builds and motion-model and "
+          "local-map steps, each as one CUDA graph (replay = eager step)", flush=True)
+    out = {}
+    for kind, system, images in (
+            ("rgbd", rgbd_system, frames[-1]), ("stereo", stereo_system, stereo_frames[-1]),
+            ("mono", mono_system, (next_view(mono_seq, N_FRAMES_MONO),))):
+        tr = system.tracker
+        imgs = [torch.as_tensor(im, dtype=torch.float32).to(tr.device) for im in images]
+        prog = frame_mod.BuildProgram(kind, tr.extractor, tr.cam)
+        out[f"build {kind}"] = check_classic_program(
+            f"build {kind} {tr.cam.width}x{tr.cam.height} / {tr.cfg.orb.n_features} / "
+            f"{tr.cfg.orb.n_levels}", prog, imgs, 1, smi_line)
+    rgbd_system.wait_mapping_idle()
+    tr = copy_tracker(rgbd_system.tracker)
+    tr._local_ids = None     # the next frame runs the classic path
+    t0 = time.perf_counter()
+    tcw = tr.track_rgbd(*frames[-1], len(frames) / seq.fps)
+    classic_ms = (time.perf_counter() - t0) * 1e3
+    progs = tr.classic_programs
+    names = ("rgbd", "motion_model_step", "local_map_step")
+    if tcw is None or any(name not in progs or progs[name].captures != 1 for name in names):
+        fail(f"classic programs: the classic-path frame on a copy of phase 14's tracker: "
+             f"tracked {tcw is not None}, programs "
+             f"{ {k: p.captures for k, p in progs.items()} }")
+    print(f"  a classic-path frame on a copy of phase 14's tracker: {classic_ms:.1f} ms with "
+          f"its three captures ("
+          f"{', '.join(f'{k} {progs[k].capture_ms[0]:.1f} ms' for k in names)})", flush=True)
+    for name in names[1:]:
+        prog = progs[name]
+        staged = prog._unflatten([x.clone() for x in next(iter(prog._graphs.values())).sources])
+        out[name] = check_classic_program(name, prog, staged, 0, smi_line)
+    for prog in progs.values():
+        prog.release()
+    out["classic_frame_ms"] = classic_ms
+    return out
+
+
 SOLVE_PROGRAM_REPLAYS = 5        # replays held to the eager solve (phase 22)
 PROGRAM_EAGER_TOL_M = 1e-9       # a replay against the eager solve on the card
 PROGRAM_HOST_LAUNCHES_MAX = 40   # kernels the host launches a solve besides its graphs
@@ -4142,7 +4366,7 @@ def main() -> None:
     capture_after_drop = run_phase(check_capture_after_drop, cam, orb_cfg, frames, seq)
     defaults_stereo = run_phase(drive_defaults_stereo, stereo_seq, stereo_frames)
     # ---- phases 15 and 16: localization mode and the system API; backlog --
-    localization = run_phase(check_localization, cam, orb_cfg)
+    localization = run_phase(check_localization, cam, orb_cfg, smi_line)
     reload = run_phase(check_map_reload, place_system, place_seq, place_frames)
     gba = run_phase(check_global_ba, defaults_system, seq)
     backlog = run_phase(drive_backlog, cam, orb_cfg, frames, seq, place_system.vocabulary)
@@ -4171,6 +4395,8 @@ def main() -> None:
     programs = run_phase(check_frame_programs, defaults_system, seq, stereo_system,
                          stereo_seq, stereo_frames, mono_a_system, mono_a_seq, frames,
                          smi_line)
+    classic = run_phase(check_classic_programs, defaults_system, frames, seq, stereo_system,
+                        stereo_frames, mono_a_system, mono_a_seq, smi_line)
     # ---- phase 22: the solve programs -------------------------------------
     solve_programs = run_phase(check_solve_programs, last_ba, cam, captured, place_cam,
                                smi_line)
@@ -4233,7 +4459,8 @@ def main() -> None:
         "replaced_points": replaced,
         "drivers": drivers, "distributed_gba": gba_parallel, "multi_session": multi,
         "periphery": periphery, "driver_viewer": driver_viewer,
-        "frame_programs": programs, "solve_programs": solve_programs}]}), flush=True)
+        "frame_programs": programs, "classic_programs": classic,
+        "solve_programs": solve_programs}]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

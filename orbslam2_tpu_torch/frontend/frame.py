@@ -2,7 +2,9 @@
 
 Counterpart of ``orbslam2_tpu/frontend/frame.py`` (RGB-D, stereo and monocular): fixed-capacity
 masked tensors on the tracker's device for the matching and pose steps, numpy
-for host bookkeeping.
+for host bookkeeping. The standalone build of each sensor is one program
+(``BuildProgram``), as the JAX package jits ``_rgbd_program``,
+``_stereo_program`` and ``_mono_program``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from orbslam2_tpu_torch.frontend import kernels
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.ops.orb import Keypoints, ORBExtractor
 from orbslam2_tpu_torch.ops.stereo import match_stereo
@@ -101,34 +104,6 @@ def _rgbd_build(extractor: ORBExtractor, cam: PinholeCamera,
     return kp.replace(xy=und_xy), ur, torch.where(has_depth, d, neg)
 
 
-def build_frame_rgbd(
-    frame_id: int,
-    timestamp: float,
-    gray,
-    depth_img,
-    extractor: ORBExtractor,
-    cam: PinholeCamera,
-) -> Frame:
-    """RGB-D frame on the extractor's device; images may be numpy arrays or
-    tensors."""
-    dev = extractor.device
-    kp, ur, depth = _rgbd_build(
-        extractor, cam,
-        torch.as_tensor(gray, dtype=torch.float32).to(dev),
-        torch.as_tensor(depth_img, dtype=torch.float32).to(dev))
-    n = kp.n
-    return Frame(
-        frame_id=frame_id,
-        timestamp=timestamp,
-        kp=kp,
-        ur=ur,
-        depth=depth,
-        tcw=np.eye(4, dtype=np.float32),
-        pt_ids=np.full(n, -1, np.int32),
-        is_outlier=np.zeros(n, bool),
-    )
-
-
 def _stereo_build(extractor: ORBExtractor, cam: PinholeCamera,
                   gl: torch.Tensor, gr: torch.Tensor):
     """Stereo frame build: extract both images (one kernel launch for both
@@ -142,34 +117,6 @@ def _stereo_build(extractor: ORBExtractor, cam: PinholeCamera,
     return kp_l.replace(xy=cam.undistort_points(kp_l.xy)), ur, depth
 
 
-def build_frame_stereo(
-    frame_id: int,
-    timestamp: float,
-    gray_left,
-    gray_right,
-    extractor: ORBExtractor,
-    cam: PinholeCamera,
-) -> Frame:
-    """Stereo frame on the extractor's device; images may be numpy arrays or
-    tensors."""
-    dev = extractor.device
-    kp, ur, depth = _stereo_build(
-        extractor, cam,
-        torch.as_tensor(gray_left, dtype=torch.float32).to(dev),
-        torch.as_tensor(gray_right, dtype=torch.float32).to(dev))
-    n = kp.n
-    return Frame(
-        frame_id=frame_id,
-        timestamp=timestamp,
-        kp=kp,
-        ur=ur,
-        depth=depth,
-        tcw=np.eye(4, dtype=np.float32),
-        pt_ids=np.full(n, -1, np.int32),
-        is_outlier=np.zeros(n, bool),
-    )
-
-
 def _mono_build(extractor: ORBExtractor, cam: PinholeCamera, gray: torch.Tensor):
     """Monocular frame build: ORB extraction (one describe launch) and
     keypoint undistortion; no keypoint has a depth or a right coordinate.
@@ -180,17 +127,55 @@ def _mono_build(extractor: ORBExtractor, cam: PinholeCamera, gray: torch.Tensor)
     return kp.replace(xy=cam.undistort_points(kp.xy)), neg, neg
 
 
-def build_frame_mono(
-    frame_id: int,
-    timestamp: float,
-    gray,
-    extractor: ORBExtractor,
-    cam: PinholeCamera,
-) -> Frame:
-    """Monocular frame on the extractor's device; the image may be a numpy
-    array or a tensor."""
-    kp, ur, depth = _mono_build(
-        extractor, cam, torch.as_tensor(gray, dtype=torch.float32).to(extractor.device))
+BUILDS = {"rgbd": _rgbd_build, "stereo": _stereo_build, "mono": _mono_build}
+
+
+class BuildProgram(kernels.StepProgram):
+    """The standalone frame build of one sensor as one program
+    (``kernels.StepProgram``): the counterpart of the JAX package's jitted
+    ``_rgbd_program`` / ``_stereo_program`` / ``_mono_program``. Called with
+    the sensor's images (float32 tensors on the extractor's device) -> (kp
+    with undistorted xy, ur, depth). On the CPU a call is the eager build
+    (``run``); on a card one CUDA graph, whose replay holds the one describe
+    launch of the build and returns copies of its outputs, so that a Frame
+    never holds a graph's buffer. The extractor's and the camera's constants
+    are part of the graph: a tracker keeps one program per sensor and
+    replaces it when either changes (``kernels.program_for``)."""
+
+    def __init__(self, kind, extractor, cam):
+        super().__init__(kind, extractor, cam)
+        self.kind, self.extractor, self.cam = kind, extractor, cam
+
+    def run(self, *imgs):
+        """The build, eagerly (it reads nothing on the host)."""
+        return BUILDS[self.kind](self.extractor, self.cam, *imgs)
+
+    def __call__(self, *imgs):
+        if imgs[0].device.type != "cuda":
+            return self.run(*imgs)
+        return self._program(list(imgs))
+
+    def _step(self, inputs, extra):
+        return self.run(*inputs)
+
+    def _tensors(self, out):
+        kp, ur, depth = out
+        return [*kernels._kp_tensors(kp), ur, depth]
+
+    def _clone(self, out):
+        kp, ur, depth = out
+        return kernels._kp_of([x.clone() for x in kernels._kp_tensors(kp)]), ur.clone(), \
+            depth.clone()
+
+
+def build_frame(kind, frame_id, timestamp, imgs, extractor, cam, program=None) -> Frame:
+    """A Frame of the sensor's images (numpy arrays or tensors), built on the
+    extractor's device through `program` (a BuildProgram of this sensor,
+    extractor and camera), or eagerly without one."""
+    dev = extractor.device
+    imgs = [torch.as_tensor(im, dtype=torch.float32).to(dev) for im in imgs]
+    kp, ur, depth = BUILDS[kind](extractor, cam, *imgs) if program is None \
+        else program(*imgs)
     n = kp.n
     return Frame(
         frame_id=frame_id,
@@ -202,3 +187,28 @@ def build_frame_mono(
         pt_ids=np.full(n, -1, np.int32),
         is_outlier=np.zeros(n, bool),
     )
+
+
+def build_frame_rgbd(frame_id: int, timestamp: float, gray, depth_img,
+                     extractor: ORBExtractor, cam: PinholeCamera,
+                     program: Optional[BuildProgram] = None) -> Frame:
+    """RGB-D frame on the extractor's device, through the caller's RGB-D
+    `program` when given; images may be numpy arrays or tensors."""
+    return build_frame("rgbd", frame_id, timestamp, (gray, depth_img), extractor, cam,
+                       program)
+
+
+def build_frame_stereo(frame_id: int, timestamp: float, gray_left, gray_right,
+                       extractor: ORBExtractor, cam: PinholeCamera,
+                       program: Optional[BuildProgram] = None) -> Frame:
+    """Stereo frame on the extractor's device, through the caller's stereo
+    `program` when given; images may be numpy arrays or tensors."""
+    return build_frame("stereo", frame_id, timestamp, (gray_left, gray_right), extractor,
+                       cam, program)
+
+
+def build_frame_mono(frame_id: int, timestamp: float, gray, extractor: ORBExtractor,
+                     cam: PinholeCamera, program: Optional[BuildProgram] = None) -> Frame:
+    """Monocular frame on the extractor's device, through the caller's mono
+    `program` when given; the image may be a numpy array or a tensor."""
+    return build_frame("mono", frame_id, timestamp, (gray,), extractor, cam, program)

@@ -333,16 +333,19 @@ def motion_model_step(
     cam: PinholeCamera,
     scale_factor: float = 1.2,
     n_levels: int = 8,
+    host_reads=None,
 ) -> TrackStepResult:
     """TrackWithMotionModel's device work: projection search at radius 15,
-    conditional widen to 30, observation staging, and robust pose LM."""
+    conditional widen to 30, observation staging, and robust pose LM.
+    ``host_reads`` as in ``_fused_track_core``: False is the capture form
+    (the widening selected on the device, every LM step run)."""
     assoc = _search_last_widening(
         tcw_pred, last_pt_pos, last_pt_valid, last_desc, last_octave,
-        last_angle, kp, cam, scale_factor, n_levels)
+        last_angle, kp, cam, scale_factor, n_levels, host_reads)
     matched = assoc >= 0
     pos_kp = last_pt_pos[assoc.clamp(0, last_pt_pos.shape[0] - 1)]
     obs = build_pose_obs_from_frame(kp, frame_ur, pos_kp, matched, scale_factor)
-    tcw, inlier, n_in = pose_opt.pose_optimization(tcw_pred, obs, cam)
+    tcw, inlier, n_in = pose_opt.pose_optimization(tcw_pred, obs, cam, stop_early=host_reads)
     return TrackStepResult(
         tcw=tcw, n_inliers=n_in, inlier=inlier, assoc=assoc,
         n_matches=matched.sum(),
@@ -363,13 +366,15 @@ def local_map_step(
     frame_ur: torch.Tensor,
     prior_pos: torch.Tensor,      # [N, 3] world pos for already-matched slots
     prior_mask: torch.Tensor,     # [N] bool slot already has an association
-    radius_mult: float,
+    radius_mult,                  # a number or a 0-d float32 tensor
     cam: PinholeCamera,
     scale_factor: float = 1.2,
     n_levels: int = 8,
+    host_reads=None,
 ) -> TrackStepResult:
     """TrackLocalMap's device work: gathered local-point projection search +
-    merged observation staging + the frame's second pose optimization."""
+    merged observation staging + the frame's second pose optimization.
+    ``host_reads`` as in ``motion_model_step``."""
     info, res = search_local_points_gathered(
         tcw, ids, sel_valid, pt_pos_all, pt_desc_all, pt_valid_all,
         pt_normal_all, pt_min_all, pt_max_all, kp, prior_mask,
@@ -380,7 +385,7 @@ def local_map_step(
     pos = torch.where(newly[:, None], cand_pos, prior_pos)
     used = prior_mask | newly
     obs = build_pose_obs_from_frame(kp, frame_ur, pos, used, scale_factor)
-    tcw_new, inlier, n_in = pose_opt.pose_optimization(tcw, obs, cam)
+    tcw_new, inlier, n_in = pose_opt.pose_optimization(tcw, obs, cam, stop_early=host_reads)
     return TrackStepResult(
         tcw=tcw_new, n_inliers=n_in, inlier=inlier, assoc=assoc,
         n_matches=used.sum(), visible=info.visible)
@@ -482,7 +487,15 @@ def _resolve_pred(tcw_pred) -> torch.Tensor:
 
 
 _KP_FIELDS = tuple(f.name for f in dataclasses.fields(Keypoints))
-_BUILDS = {"rgbd": "_rgbd_build", "stereo": "_stereo_build", "mono": "_mono_build"}
+
+
+def _kp_tensors(kp: Keypoints) -> list:
+    return [getattr(kp, f) for f in _KP_FIELDS]
+
+
+def _kp_of(tensors) -> Keypoints:
+    """Keypoints of its fields' tensors, in ``_KP_FIELDS``' order."""
+    return Keypoints(**dict(zip(_KP_FIELDS, tensors)))
 
 
 def _out_tensors(out: FusedFrameOut) -> dict:
@@ -494,7 +507,7 @@ def _out_tensors(out: FusedFrameOut) -> dict:
 
 
 def _clone_out(out: FusedFrameOut) -> FusedFrameOut:
-    kp = Keypoints(**{f: getattr(out.kp, f).clone() for f in _KP_FIELDS})
+    kp = _kp_of([x.clone() for x in _kp_tensors(out.kp)])
     return dataclasses.replace(out, kp=kp, **{
         f.name: getattr(out, f.name).clone() for f in dataclasses.fields(out) if f.name != "kp"})
 
@@ -520,28 +533,40 @@ class StepProgram:
     ``torch.cuda.CUDAGraph`` there (through ``graph_capture.capture``);
     every later call copies its inputs into the graph's buffers on the
     current stream, replays the graph there and returns copies of its
-    outputs, which a later replay leaves alone. A new key captures a new
-    graph, as ``jax.jit`` traces again. A graph's buffers are not
-    reentrant: one caller owns a program. A capture or a replay that fails
-    raises; nothing falls back to the eager step. ``release()`` frees the
-    graphs once their last replay has run (``graph_capture.release``); the
-    next call captures again.
+    outputs, which a later replay leaves alone. The last ``n_mirror`` inputs
+    are the map mirror's tensors, which a sync replaces and never writes in
+    place: a replay copies them only when they are not the tensors last
+    copied in. A new key captures a new graph, as ``jax.jit`` traces again.
+    A graph's buffers are not reentrant: one caller owns a program. A
+    capture or a replay that fails raises; nothing falls back to the eager
+    step. ``release()`` frees the graphs once their last replay has run
+    (``graph_capture.release``); the next call captures again.
 
-    ``captures`` counts the graphs captured and ``replays`` the replays;
-    each replay adds the describe launches it holds to
-    ``cuda_orb.fused_orient_describe.launches``, which no wrapper call
-    counts inside a graph.
+    ``made_for`` holds the constructor's arguments (a deep copy of a program
+    is a new program made for the same, with no graph; ``program_for``
+    replaces a program made for something else). ``captures`` counts the
+    graphs captured, ``capture_ms`` keeps each capture's milliseconds, and
+    ``replays`` counts the replays; each replay adds the describe launches
+    it holds to ``cuda_orb.fused_orient_describe.launches``, which no wrapper
+    call counts inside a graph.
 
     A subclass gives ``_step(inputs, extra)``, the step's capture form on
     the flat list of input tensors, and ``_tensors(out)`` and
     ``_clone(out)`` for its outputs."""
 
-    def __init__(self):
+    n_mirror = 0
+
+    def __init__(self, *made_for):
+        self.made_for = made_for
         self._graphs: dict = {}
         self._stream = None
         self._done = None       # recorded behind the last replay
         self.captures = 0
+        self.capture_ms: list = []
         self.replays = 0
+
+    def __deepcopy__(self, memo):
+        return type(self)(*self.made_for)
 
     def release(self) -> None:
         """Free the program's graphs after their last replay."""
@@ -581,16 +606,20 @@ class StepProgram:
 
         # thread_local: the mapping worker goes on queueing work on its own
         # stream while this thread captures
-        graph = graph_capture.capture({"step": step}, side)[0]["step"]
+        graphs, _, ms = graph_capture.capture({"step": step}, side)
         held = cuda_orb.fused_orient_describe.launches - counted
         cuda_orb.fused_orient_describe.launches = counted   # a capture runs nothing
-        self._graphs[key] = _Captured(graph, inputs, captured["outputs"], held, list(flat))
+        self._graphs[key] = _Captured(graphs["step"], inputs, captured["outputs"], held,
+                                      list(flat))
         self.captures += 1
+        self.capture_ms.append(ms)
         return out
 
     def _copy_in(self, captured: _Captured, flat: list) -> None:
-        for dst, src in zip(captured.inputs, flat):
-            dst.copy_(src)
+        n_copy = len(flat) - self.n_mirror
+        for i, (dst, src) in enumerate(zip(captured.inputs, flat)):
+            if i < n_copy or src is not captured.sources[i]:
+                dst.copy_(src)
 
     def _replay(self, captured: _Captured, flat: list):
         from orbslam2_tpu_torch.ops import cuda_orb
@@ -606,6 +635,26 @@ class StepProgram:
         return self._clone(captured.outputs)
 
 
+def program_for(programs: dict, name, make, *made_for) -> StepProgram:
+    """``programs[name]`` when it was made for ``made_for``; else a new
+    ``make(*made_for)`` put there, the program it replaces released first
+    (its graphs hold the old extractor's and camera's constants)."""
+    prog = programs.get(name)
+    if prog is None or prog.made_for != made_for:
+        if prog is not None:
+            prog.release()
+        prog = programs[name] = make(*made_for)
+    return prog
+
+
+def _radius_tensor(radius_mult, dev) -> torch.Tensor:
+    """A search radius multiplier as a 0-d float32 tensor on ``dev``: an
+    input of a graph, not a constant of it."""
+    if isinstance(radius_mult, torch.Tensor):
+        return radius_mult.to(device=dev, dtype=torch.float32)
+    return torch.full((), float(radius_mult), dtype=torch.float32, device=dev)
+
+
 class FrameProgram(StepProgram):
     """The fused whole-frame step of one sensor as one program
     (``StepProgram``): the counterpart of the JAX package's jitted
@@ -615,29 +664,24 @@ class FrameProgram(StepProgram):
     after the frame's own (``tcw_pred`` a pose or a ``(velocity, tcw_prev)``
     pair, ``last_kp``, ``last_pid``, ``local_ids``, ``local_sel``,
     ``radius_mult``, the six mirror tensors). On the CPU a call is the eager
-    step (``run``). A replay copies the mirror tensors only when the mirror
-    replaced them (a sync never writes them in place). Each tracker owns
-    its programs (``fused_frame_step(..., programs=)``), and a deep copy of
-    a program is a new program with no graph. A replay holds one describe
-    launch."""
+    step (``run``). Each tracker owns its programs (``fused_frame_step(...,
+    programs=)``). A replay holds one describe launch."""
+
+    n_mirror = 6
 
     def __init__(self, kind, extractor, cam, scale_factor, n_levels):
-        super().__init__()
+        super().__init__(kind, extractor, cam, scale_factor, n_levels)
         self.kind = kind
         self.n_images = 1 if kind == "mono" else 2
         self.extractor, self.cam = extractor, cam
         self.scale_factor, self.n_levels = scale_factor, n_levels
-
-    def __deepcopy__(self, memo):
-        return type(self)(self.kind, self.extractor, self.cam, self.scale_factor,
-                          self.n_levels)
 
     def run(self, *args, host_reads=None) -> FusedFrameOut:
         """The step, eagerly: frame build, then `_fused_track_core`."""
         from orbslam2_tpu_torch.frontend import frame as frame_mod
 
         imgs, (tcw_pred, *rest) = args[:self.n_images], args[self.n_images:]
-        kp, ur, depth = getattr(frame_mod, _BUILDS[self.kind])(self.extractor, self.cam, *imgs)
+        kp, ur, depth = frame_mod.BUILDS[self.kind](self.extractor, self.cam, *imgs)
         return _fused_track_core(
             kp, ur, depth, _resolve_pred(tcw_pred), *rest, self.cam,
             self.scale_factor, self.n_levels, host_reads=host_reads)
@@ -655,18 +699,14 @@ class FrameProgram(StepProgram):
         tcw_pred, last_kp, last_pid, local_ids, local_sel, radius_mult, *pt = args[n:]
         pair = isinstance(tcw_pred, tuple)
         pred = list(tcw_pred) if pair else [tcw_pred]
-        dev = args[0].device
-        radius = torch.as_tensor(radius_mult, dtype=torch.float32).to(dev) \
-            if isinstance(radius_mult, torch.Tensor) \
-            else torch.full((), float(radius_mult), dtype=torch.float32, device=dev)
-        return [*args[:n], *pred, *(getattr(last_kp, f) for f in _KP_FIELDS),
-                last_pid.long(), local_ids.long(), local_sel, radius, *pt], pair
+        return [*args[:n], *pred, *_kp_tensors(last_kp), last_pid.long(), local_ids.long(),
+                local_sel, _radius_tensor(radius_mult, args[0].device), *pt], pair
 
     def _unflatten(self, flat, pair):
         i = self.n_images
         pred = (flat[i], flat[i + 1]) if pair else flat[i]
         i += 2 if pair else 1
-        kp = Keypoints(**dict(zip(_KP_FIELDS, flat[i:i + len(_KP_FIELDS)])))
+        kp = _kp_of(flat[i:i + len(_KP_FIELDS)])
         return (*flat[:self.n_images], pred, kp, *flat[i + len(_KP_FIELDS):])
 
     def _step(self, inputs, pair) -> FusedFrameOut:
@@ -677,15 +717,6 @@ class FrameProgram(StepProgram):
 
     def _clone(self, out: FusedFrameOut) -> FusedFrameOut:
         return _clone_out(out)
-
-    def _copy_in(self, captured: _Captured, flat: list) -> None:
-        n_mirror = 6
-        for dst, src in zip(captured.inputs[:-n_mirror], flat[:-n_mirror]):
-            dst.copy_(src)
-        for dst, src, held in zip(captured.inputs[-n_mirror:], flat[-n_mirror:],
-                                  captured.sources[-n_mirror:]):
-            if src is not held:
-                dst.copy_(src)
 
 
 def _fused_rgbd_program(extractor, cam, scale_factor, n_levels) -> FrameProgram:
@@ -700,10 +731,6 @@ def _fused_mono_program(extractor, cam, scale_factor, n_levels) -> FrameProgram:
     return FrameProgram("mono", extractor, cam, scale_factor, n_levels)
 
 
-_PROGRAMS = {"rgbd": _fused_rgbd_program, "stereo": _fused_stereo_program,
-             "mono": _fused_mono_program}
-
-
 def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
                      *args, programs=None) -> FusedFrameOut:
     """The fused whole-frame step for the sensor's image tuple, through the
@@ -713,19 +740,84 @@ def fused_frame_step(sensor_images, extractor, cam, scale_factor, n_levels,
     monocular observations (uR = depth = -1). `args`: ``tcw_pred`` (a pose or
     a ``(velocity, tcw_prev)`` pair, `_resolve_pred`) and the rest of
     `_fused_track_core`'s arguments after the frame's own. `programs`: the
-    caller's programs by sensor, filled here (a tracker keeps one; a program
-    made for another extractor or camera is released and replaced); without
-    it a call makes a program of its own, which on a card captures a graph
-    it never replays."""
+    caller's programs by sensor, filled here (a tracker keeps one;
+    ``program_for``); without it a call makes a program of its own, which on
+    a card captures a graph it never replays."""
     kind, imgs = sensor_images
     programs = {} if programs is None else programs
-    prog = programs.get(kind)
-    if prog is None or prog.extractor is not extractor or (
-            prog.cam, prog.scale_factor, prog.n_levels) != (cam, scale_factor, n_levels):
-        if prog is not None:
-            prog.release()
-        prog = programs[kind] = _PROGRAMS[kind](extractor, cam, scale_factor, n_levels)
+    prog = program_for(programs, kind, FrameProgram, kind, extractor, cam, scale_factor,
+                       n_levels)
     return prog(*imgs, *args)
+
+
+class _TrackStepProgram(StepProgram):
+    """A classic-path tracking step (``step_name``, a function of this
+    module) as one program: the counterpart of the JAX package's jitted
+    step of that name. Called with the step's arguments up to ``cam`` ->
+    TrackStepResult. On the CPU a call is the eager step, the module's
+    function looked up at each call; on a card one CUDA graph of its
+    capture form (``host_reads=False``). A replay holds no describe launch.
+    The tracker owns one of each (``Tracker.classic_programs``)."""
+
+    step_name = ""
+
+    def __init__(self, cam, scale_factor, n_levels):
+        super().__init__(cam, scale_factor, n_levels)
+        self.cam, self.scale_factor, self.n_levels = cam, scale_factor, n_levels
+
+    def run(self, *args, host_reads=None) -> TrackStepResult:
+        """The step, eagerly (``host_reads`` as the step takes it)."""
+        return globals()[self.step_name](*args, self.cam, self.scale_factor, self.n_levels,
+                                         host_reads=host_reads)
+
+    def __call__(self, *args) -> TrackStepResult:
+        if args[0].device.type != "cuda":
+            return self.run(*args)
+        return self._program(self._flatten(args))
+
+    def _step(self, inputs, extra) -> TrackStepResult:
+        return self.run(*self._unflatten(inputs), host_reads=False)
+
+    def _tensors(self, out: TrackStepResult):
+        return out
+
+    def _clone(self, out: TrackStepResult) -> TrackStepResult:
+        return TrackStepResult(*(t.clone() for t in out))
+
+
+class MotionModelProgram(_TrackStepProgram):
+    """``motion_model_step`` as one program (the JAX package's jitted
+    ``motion_model_step``): the widening selected on the device, as its
+    ``lax.cond``, and every LM step run."""
+
+    step_name = "motion_model_step"
+
+    def _flatten(self, args) -> list:
+        *head, kp, frame_ur = args
+        return [*head, *_kp_tensors(kp), frame_ur]
+
+    def _unflatten(self, flat) -> tuple:
+        return (*flat[:6], _kp_of(flat[6:-1]), flat[-1])
+
+
+class LocalMapProgram(_TrackStepProgram):
+    """``local_map_step`` as one program (the JAX package's jitted
+    ``local_map_step``): every LM step run, the radius multiplier a 0-d
+    input, the six mirror tensors copied in only when the mirror replaced
+    them."""
+
+    step_name = "local_map_step"
+    n_mirror = 6
+
+    def _flatten(self, args) -> list:
+        tcw, ids, sel_valid, *rest = args
+        mirror, (kp, frame_ur, prior_pos, prior_mask, radius_mult) = rest[:6], rest[6:]
+        return [tcw, ids.long(), sel_valid, *_kp_tensors(kp), frame_ur, prior_pos,
+                prior_mask, _radius_tensor(radius_mult, tcw.device), *mirror]
+
+    def _unflatten(self, flat) -> tuple:
+        k = 3 + len(_KP_FIELDS)
+        return (*flat[:3], *flat[-6:], _kp_of(flat[3:k]), *flat[k:k + 4])
 
 
 def build_pose_obs_from_frame(

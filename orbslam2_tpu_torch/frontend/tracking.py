@@ -199,6 +199,12 @@ class Tracker:
         # the fused frame programs (kernels.FrameProgram) of this tracker, by
         # sensor: on a card each holds its CUDA graphs
         self.frame_programs: dict = {}
+        # the classic path's programs: the frame build by sensor
+        # (frame.BuildProgram) and the motion-model and local-map steps
+        # (kernels.MotionModelProgram, kernels.LocalMapProgram, under their
+        # step's name), each made for the tracker's extractor, camera and ORB
+        # settings (kernels.program_for)
+        self.classic_programs: dict = {}
         # localization-mode VO state (the reference's mbVO): True while the
         # frame tracks under 10 map points and survives on temporal points
         self.mb_vo = False
@@ -264,20 +270,20 @@ class Tracker:
 
     # ------------------------------------------------------------------
     def _build_frame(self, kind: str, imgs, timestamp: float) -> frame_mod.Frame:
+        """A classic-path frame, built through the sensor's build program."""
         with self.stats.stage("frame_build"):
-            if kind == "rgbd":
-                fr = frame_mod.build_frame_rgbd(
-                    self.frame_counter, timestamp, imgs[0], imgs[1],
-                    self.extractor, self.cam)
-            elif kind == "stereo":
-                fr = frame_mod.build_frame_stereo(
-                    self.frame_counter, timestamp, imgs[0], imgs[1],
-                    self.extractor, self.cam)
-            else:
-                fr = frame_mod.build_frame_mono(
-                    self.frame_counter, timestamp, imgs[0], self.extractor, self.cam)
+            prog = kernels.program_for(self.classic_programs, kind, frame_mod.BuildProgram,
+                                       kind, self.extractor, self.cam)
+            fr = frame_mod.build_frame(kind, self.frame_counter, timestamp, imgs,
+                                        self.extractor, self.cam, prog)
         self.frame_counter += 1
         return fr
+
+    def _step_program(self, make):
+        """The tracker's program of a classic-path step
+        (kernels.MotionModelProgram or kernels.LocalMapProgram)."""
+        return kernels.program_for(self.classic_programs, make.step_name, make, self.cam,
+                                   self.cfg.orb.scale_factor, self.cfg.orb.n_levels)
 
     # ------------------------------------------------------------------
     # main state machine (Tracking::Track)
@@ -1024,10 +1030,9 @@ class Tracker:
 
         # search (with conditional widen), observation staging, and robust
         # pose LM in one step + one fetch
-        step = _host_step(kernels.motion_model_step(
+        step = _host_step(self._step_program(kernels.MotionModelProgram)(
             self._dev(tcw_pred), self._dev(pos), self._dev(has_pt),
-            last.kp.desc, last.kp.octave, last.kp.angle, fr.kp, fr.ur,
-            self.cam, self.cfg.orb.scale_factor, self.cfg.orb.n_levels))
+            last.kp.desc, last.kp.octave, last.kp.angle, fr.kp, fr.ur))
         assoc = step.assoc
         if step.n_matches < 20:
             return False
@@ -1266,13 +1271,12 @@ class Tracker:
             mir = m.device_mirror(self.device)
             sel = sel_all.copy()
             sel[:n_local] = ~already
-            step = _host_step(kernels.local_map_step(
+            step = _host_step(self._step_program(kernels.LocalMapProgram)(
                 self._dev(fr.tcw), self._dev(sel_ids).long(), self._dev(sel),
                 mir.pt_pos, mir.pt_desc, mir.pt_valid, mir.pt_normal,
                 mir.pt_min_dist, mir.pt_max_dist,
                 fr.kp, fr.ur, self._dev(prior_pos), self._dev(prior_mask),
-                radius_mult, self.cam,
-                self.cfg.orb.scale_factor, self.cfg.orb.n_levels))
+                radius_mult))
             assoc, visible = step.assoc, step.visible
         else:
             # host-staged: the local points' rows are gathered on the host

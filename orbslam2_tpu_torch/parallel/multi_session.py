@@ -49,7 +49,7 @@ class MultiSessionProgram(kernels.StepProgram):
 
     def __init__(self, extractor: ORBExtractor, cam: PinholeCamera, orb_cfg: ORBConfig,
                  local_cap: int):
-        super().__init__()
+        super().__init__(extractor, cam, orb_cfg, local_cap)
         self.extractor, self.cam = extractor, cam
         self.orb_cfg, self.local_cap = orb_cfg, local_cap
 

@@ -176,9 +176,11 @@ class SLAMSystem:
 
     def programs(self) -> list:
         """The programs whose CUDA graphs the system owns: the tracker's
-        frame programs, the local BA's, the loop closer's essential graph and
-        global BA, and the system's own global BA without a loop closer."""
-        out = [*self.tracker.frame_programs.values(), self.local_mapper.ba_program]
+        frame programs and classic-path programs, the local BA's, the loop
+        closer's essential graph and global BA, and the system's own global
+        BA without a loop closer."""
+        out = [*self.tracker.frame_programs.values(), *self.tracker.classic_programs.values(),
+               self.local_mapper.ba_program]
         if self.loop_closer is not None:
             out += [self.loop_closer.eg_program, self.loop_closer.gba_program]
         else:

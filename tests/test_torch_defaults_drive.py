@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from orbslam2_tpu_torch.backend import solve_program
-from orbslam2_tpu_torch.frontend import kernels
+from orbslam2_tpu_torch.frontend import frame, kernels
 from orbslam2_tpu_torch.frontend.tracking import SLAMConfig
 from orbslam2_tpu_torch.geometry.camera import PinholeCamera
 from orbslam2_tpu_torch.io.synthetic import SyntheticSequence
@@ -248,14 +248,23 @@ def test_shutdown_releases_the_graphs_of_every_program(stub, vocabulary):
     system = SLAMSystem(cfg, Sensor.RGBD, device="cpu",
                         vocabulary=get_default_vocabulary() if vocabulary else None)
     log = []
-    frame_program = kernels.FrameProgram("rgbd", system.tracker.extractor, CAM, 1.2, 4)
-    system.tracker.frame_programs["rgbd"] = frame_program
-    frame_program._graphs[("key",)] = kernels._Captured(StubGraph(), [], None, 1, [])
-    frame_program._done = StubEvent(log)
+    tracker = system.tracker
+    tracker.frame_programs["rgbd"] = kernels.FrameProgram("rgbd", tracker.extractor, CAM, 1.2, 4)
+    # the classic path's programs: the frame build, the motion-model and
+    # local-map steps
+    tracker.classic_programs.update(
+        rgbd=frame.BuildProgram("rgbd", tracker.extractor, CAM),
+        motion_model_step=kernels.MotionModelProgram(CAM, 1.2, 4),
+        local_map_step=kernels.LocalMapProgram(CAM, 1.2, 4))
+    steps = [*tracker.frame_programs.values(), *tracker.classic_programs.values()]
+    for prog in steps:
+        prog._graphs[("key",)] = kernels._Captured(StubGraph(), [], None, 1, [])
+        prog._done = StubEvent(log)
     solves = [p for p in system.programs() if isinstance(p, solve_program._Program)]
     expected = (3 if vocabulary else 2)
-    assert len(solves) == expected and len(system.programs()) == expected + 1
-    graphs = [frame_program._graphs[("key",)].graph]
+    assert len(solves) == expected and len(system.programs()) == expected + len(steps)
+    assert all(any(p is q for q in system.programs()) for p in steps)
+    graphs = [p._graphs[("key",)].graph for p in steps]
     for prog in solves:
         parts = {"reset": StubGraph(), "step": StubGraph()}
         prog._captured[("key",)] = solve_program._Captured([], parts, ["reset", "step"],
@@ -265,8 +274,8 @@ def test_shutdown_releases_the_graphs_of_every_program(stub, vocabulary):
         graphs += parts.values()
     system.shutdown()
     assert all(not g.live for g in graphs) and stub.freed == [False] * len(graphs)
-    assert log == ["replay done"] * (1 + len(solves))
-    assert frame_program._graphs == {} and all(p._captured == {} for p in solves)
+    assert log == ["replay done"] * (len(steps) + len(solves))
+    assert all(p._graphs == {} for p in steps) and all(p._captured == {} for p in solves)
     assert all(p._pool is None for p in solves), "a new capture takes a new pool"
     with pytest.raises(RuntimeError, match="freed"):
         graphs[0].replay()
