@@ -3963,7 +3963,11 @@ def check_classic_programs(rgbd_system, frames, seq, stereo_system, stereo_frame
             f"{tr.cfg.orb.n_levels}", prog, imgs, 1, smi_line)
     rgbd_system.wait_mapping_idle()
     tr = copy_tracker(rgbd_system.tracker)
-    tr._local_ids = None     # the next frame runs the classic path
+    # the next frame runs the classic path: the whole local selection goes,
+    # as Tracker.reset drops it (a point the mapper merged since would else
+    # be remapped in a selection without its padded ids)
+    tr._local_ids = tr._local_sel = tr._local_pts = None
+    tr._selection_fresh = False
     t0 = time.perf_counter()
     tcw = tr.track_rgbd(*frames[-1], len(frames) / seq.fps)
     classic_ms = (time.perf_counter() - t0) * 1e3
